@@ -1,0 +1,37 @@
+"""binocular3dgs_torch — PyTorch/CUDA port of binocular3dgs_tpu for NVIDIA Hopper.
+
+The JAX package `binocular3dgs_tpu` is the reference this port is held
+against; the port never imports it (nor JAX). Plain tensor code is PyTorch;
+each TPU Pallas kernel on a ported path is a hand-written CUDA kernel for
+`sm_90a` under `csrc/`, built with nvcc at first use (ops/cuda_build.py).
+
+Ported so far: the serving path — load a trained scene, render views
+(project -> bin -> gather -> blend -> planes) and score them (PSNR/SSIM).
+Training waits for the next slice.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on; raises when CUDA is asked for and
+    absent (no silent CPU fallback).
+
+    Also turns TF32 off for matmuls and cuDNN convolutions: float32 work on
+    the card must be float32. The JAX package lost a round to silent
+    reduced-precision TPU matmuls (`binocular3dgs_tpu/__init__.py`); on
+    Hopper the same trap is TF32, which cuDNN convolutions use by default.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' (or --device cpu) to run on the CPU"
+        )
+    return device

@@ -1,0 +1,33 @@
+"""The port stands alone: no file of binocular3dgs_torch/, nor chip_smoke.py,
+imports jax, flax or binocular3dgs_tpu (checked on the source, so a lazy
+import inside a function is caught too)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "binocular3dgs_tpu")
+FILES = sorted((REPO / "binocular3dgs_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_scans_the_port():
+    assert len(FILES) > 15 and (REPO / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
