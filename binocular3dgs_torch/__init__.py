@@ -6,8 +6,10 @@ each TPU Pallas kernel on a ported path is a hand-written CUDA kernel for
 `sm_90a` under `csrc/`, built with nvcc at first use (ops/cuda_build.py).
 
 Ported so far: the serving path — load a trained scene, render views
-(project -> bin -> gather -> blend -> planes) and score them (PSNR/SSIM).
-Training waits for the next slice.
+(project -> bin -> gather -> blend -> planes) and score them (PSNR/SSIM) —
+and the training path: the binocular train step (two renders, the
+disparity warp, losses, autograd through the blend and warp kernels, masked
+Adam), densification and the trainer behind `cli train`.
 """
 
 from __future__ import annotations

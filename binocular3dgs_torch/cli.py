@@ -4,17 +4,24 @@ Same subcommands and flags as `binocular3dgs_tpu/cli.py`, plus `--device`
 (default `cuda`; with no GPU present a CUDA run raises, it does not carry on
 on the CPU):
 
-  python -m binocular3dgs_torch.cli render    -m <model> -s <scene> [--eval]
+  python -m binocular3dgs_torch.cli train     -s <scene> -m <model> [...]
+  python -m binocular3dgs_torch.cli render    -m <model> [-s <scene>]
   python -m binocular3dgs_torch.cli metrics   -m <model> [...]
   python -m binocular3dgs_torch.cli aggregate -m <model> [...]
 
-`train`, `spiral`, `triangulate` and `run` are not ported yet: they print so
-and exit non-zero.
+`train` writes `cfg_args.json`; `render` reads the model settings from that
+file alone, as the JAX CLI does (its `--eval`, `-r`, `-i`, `-w` and
+`--sh_degree` are accepted and ignored; `-m` and `-s` apply). `train` leaves
+out the TPU-only `--backend`, `--max_pairs_per_tile` and `--raster_chunk`;
+`--start_checkpoint`, `--checkpoint_iterations` and `--profile_dir` are not
+ported yet and are refused. `spiral`, `triangulate` and `run` are not ported
+yet: they print so and exit non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -23,21 +30,20 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .config import Config, load_config
+from .config import Config, load_config, save_config
 
-NOT_PORTED = ("train", "spiral", "triangulate", "run")
+NOT_PORTED = ("spiral", "triangulate", "run")
 
 
 def _add_common_model_flags(p: argparse.ArgumentParser):
-    # None / False = keep the value of the model's cfg_args.json (or the
-    # default ModelConfig when there is none)
+    # reference arguments/__init__.py:47-91
     p.add_argument("--source_path", "-s", type=str, default="")
     p.add_argument("--model_path", "-m", type=str, default="")
-    p.add_argument("--images", "-i", type=str, default=None)
-    p.add_argument("--resolution", "-r", type=int, default=None)
+    p.add_argument("--images", "-i", type=str, default="images")
+    p.add_argument("--resolution", "-r", type=int, default=-1)
     p.add_argument("--white_background", "-w", action="store_true")
     p.add_argument("--eval", action="store_true")
-    p.add_argument("--sh_degree", type=int, default=None)
+    p.add_argument("--sh_degree", type=int, default=1)
 
 
 def _add_device_flag(p: argparse.ArgumentParser):
@@ -45,7 +51,104 @@ def _add_device_flag(p: argparse.ArgumentParser):
                    help="torch device to run on (default cuda; cpu on request)")
 
 
+def cmd_train(argv):
+    # reference train.py:263-298
+    p = argparse.ArgumentParser("train")
+    _add_common_model_flags(p)
+    p.add_argument("--iterations", type=int, default=30_000)
+    p.add_argument("--position_lr_init", type=float, default=0.00016)
+    p.add_argument("--position_lr_final", type=float, default=0.0000016)
+    p.add_argument("--position_lr_max_steps", type=int, default=30_000)
+    p.add_argument("--feature_lr", type=float, default=0.0025)
+    p.add_argument("--opacity_lr", type=float, default=0.05)
+    p.add_argument("--scaling_lr", type=float, default=0.005)
+    p.add_argument("--rotation_lr", type=float, default=0.001)
+    p.add_argument("--percent_dense", type=float, default=0.01)
+    p.add_argument("--lambda_dssim", type=float, default=0.2)
+    p.add_argument("--densification_interval", type=int, default=100)
+    p.add_argument("--densify_from_iter", type=int, default=500)
+    p.add_argument("--densify_until_iter", type=int, default=15_000)
+    p.add_argument("--densify_grad_threshold", type=float, default=0.0002)
+    p.add_argument("--test_iterations", nargs="+", type=int, default=[30_000])
+    p.add_argument("--save_iterations", nargs="+", type=int, default=[30_000])
+    p.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    p.add_argument("--start_checkpoint", type=str, default=None)
+    p.add_argument("--opacity_decay", action="store_true", default=True)
+    p.add_argument("--opacity_decay_factor", type=float, default=0.995)
+    p.add_argument("--cam_trans_dist", type=float, default=0.4)
+    p.add_argument("--binocular_consistency", action="store_true", default=True)
+    p.add_argument("--shift_cam_start", type=int, default=20_000)
+    p.add_argument("--dataset_name", type=str, default="LLFF")
+    p.add_argument("--n_views", type=int, default=3)
+    p.add_argument("--suffix", type=str, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pairs_per_gaussian", type=int, default=12)
+    p.add_argument("--fused_steps", type=int, default=0,
+                   help="accepted for the JAX CLI's sake; the port runs one step per iteration")
+    p.add_argument("--debug", action="store_true",
+                   help="abort on a non-finite loss (reference --detect_anomaly)")
+    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--quiet", "-q", action="store_true")
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+    for flag, given in (("--start_checkpoint", args.start_checkpoint),
+                        ("--checkpoint_iterations", args.checkpoint_iterations),
+                        ("--profile_dir", args.profile_dir)):
+        if given:
+            print(f"{flag} is not yet ported to binocular3dgs_torch; "
+                  f"use python -m binocular3dgs_tpu.cli train")
+            return 2
+
+    cfg = Config()
+    m = cfg.model
+    m.source_path = os.path.abspath(args.source_path) if args.source_path else ""
+    for k in ("model_path", "images", "resolution", "white_background", "eval", "sh_degree"):
+        setattr(m, k, getattr(args, k))
+    for k in (
+        "iterations", "position_lr_init", "position_lr_final", "position_lr_max_steps",
+        "feature_lr", "opacity_lr", "scaling_lr", "rotation_lr", "percent_dense",
+        "lambda_dssim", "densification_interval", "densify_from_iter",
+        "densify_until_iter", "densify_grad_threshold",
+    ):
+        setattr(cfg.opt, k, getattr(args, k))
+    t = cfg.train
+    for k in (
+        "opacity_decay", "opacity_decay_factor", "cam_trans_dist", "binocular_consistency",
+        "shift_cam_start", "dataset_name", "n_views", "suffix", "seed", "fused_steps",
+    ):
+        setattr(t, k, getattr(args, k))
+    t.test_iterations = tuple(args.test_iterations)
+    t.save_iterations = tuple(args.save_iterations) + (args.iterations,)
+    cfg.raster.pairs_per_gaussian = args.pairs_per_gaussian
+    cfg.pipeline.debug = args.debug
+
+    from .data.dataset import Scene
+    from .train.loop import Trainer
+
+    device = resolve_device(args.device)
+    if m.model_path:
+        os.makedirs(m.model_path, exist_ok=True)
+        save_config(cfg, os.path.join(m.model_path, "cfg_args.json"))
+    print(f"Optimizing {m.model_path}")
+    trainer = Trainer(cfg, Scene.load(cfg, device=device), device=device)
+
+    def progress(entry):
+        if not args.quiet:
+            print(f"iter {entry.iteration}: loss {entry.loss:.6f} "
+                  f"disp {entry.disparity_loss:.6f} points {entry.points} "
+                  f"({entry.iters_per_sec:.2f} it/s)", flush=True)
+
+    trainer.train(args.iterations, progress=progress)
+    if m.model_path and trainer.log:
+        with open(os.path.join(m.model_path, "train_log.json"), "w") as f:
+            json.dump([dataclasses.asdict(e) for e in trainer.log], f)
+    print(f"\nTraining complete. {m.model_path}")
+    return 0
+
+
 def _load_trained(args, device):
+    """The model settings come from the model's cfg_args.json alone, as in
+    the JAX CLI; only -m and -s apply over it."""
     from .models.gaussians import load_ply
 
     cfg_path = os.path.join(args.model_path, "cfg_args.json")
@@ -53,11 +156,6 @@ def _load_trained(args, device):
     cfg.model.model_path = args.model_path
     if args.source_path:
         cfg.model.source_path = os.path.abspath(args.source_path)
-    # a flag given on the command line overrides the training run's setting
-    for k in ("images", "resolution", "sh_degree", "white_background", "eval"):
-        v = getattr(args, k)
-        if v is not None and v is not False:
-            setattr(cfg.model, k, v)
 
     pc_root = os.path.join(args.model_path, "point_cloud")
     if args.iteration == -1:
@@ -109,6 +207,7 @@ def cmd_render(argv):
     scene = Scene.load(cfg, shuffle=False, device=device)
     bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, device=device)
 
+    @torch.no_grad()
     def render_set(name, views):
         base = os.path.join(cfg.model.model_path, name, f"ours_{iteration}")
         for idx, v in enumerate(views):
@@ -168,6 +267,7 @@ def cmd_aggregate(argv):
 
 
 COMMANDS = {
+    "train": cmd_train,
     "render": cmd_render,
     "metrics": cmd_metrics,
     "aggregate": cmd_aggregate,

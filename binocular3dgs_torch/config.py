@@ -4,9 +4,10 @@ Names and defaults mirror `binocular3dgs_tpu/config.py` (itself the
 reference flag system) so a `cfg_args.json` written by either package loads
 in the other. The JAX `backend` choice, the TPU-only raster knobs
 (`pallas_chunk`, `pallas_tile_group`, `grad_sort_bf16`, `max_pairs_per_tile`,
-`chunk`) and the training-only `max_pairs_per_gaussian` are not carried:
-unknown keys are ignored on load. The port has one blend path, whose wrapper
-launches the CUDA kernel for CUDA tensors and its plain version for CPU ones.
+`chunk`) are not carried: unknown keys are ignored on load. The port has one
+blend path, whose wrapper launches the CUDA kernel for CUDA tensors and its
+plain version for CPU ones. `TrainConfig.fused_steps` is read and ignored:
+the port's trainer runs one step per iteration (train/loop.py).
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ class RasterConfig:
     # Static capacity of the (tile, gaussian) pair list as a multiple of the
     # gaussian capacity. Overflowing pairs are dropped (reported via num_pairs).
     pairs_per_gaussian: int = 12
+    # Ceiling of the trainer's pair-capacity growth (train/loop.py doubles
+    # pairs_per_gaussian up to it when the wanted pairs near capacity).
+    max_pairs_per_gaussian: int = 96
     # The compositing constants of the CUDA rasterizer contract (SURVEY.md
     # §3.5). Recorded for cfg_args.json interchange; the blend kernels and
     # their plain versions fix them, as the JAX package's do.

@@ -75,3 +75,31 @@ def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> np
     P[2, 3] = -(zfar * znear) / (zfar - znear)
     P[3, 2] = 1.0
     return P.astype(np.float32)
+
+
+def expon_lr_schedule(
+    lr_init: float,
+    lr_final: float,
+    lr_delay_steps: int = 0,
+    lr_delay_mult: float = 1.0,
+    max_steps: int = 1_000_000,
+):
+    """Log-linear decay with optional warm-up easing (reference
+    `utils/general_utils.py:29`). The returned function takes a Python step
+    and returns a Python float: the trainer's step is a host integer, so the
+    rate is computed on the host and never syncs the device."""
+
+    def helper(step) -> float:
+        step = float(step)
+        if step < 0 or (lr_init == 0.0 and lr_final == 0.0):
+            return 0.0
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * math.sin(
+                0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0)
+            )
+        else:
+            delay_rate = 1.0
+        t = min(max(step / max_steps, 0.0), 1.0)
+        return delay_rate * math.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
+
+    return helper

@@ -1,21 +1,28 @@
-"""Tile blend forward: the hand-written CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""Tile blend forward and backward: the hand-written CUDA kernels, their
+wrappers and their plain PyTorch versions.
 
-Counterpart of the forward half of `binocular3dgs_tpu/ops/blend_pallas.py`
-(`blend_forward_pallas`) and of `binocular3dgs_tpu/ops/blend.py`
-(`blend_forward_xla`). Inputs are the field-major record table
+Counterpart of `binocular3dgs_tpu/ops/blend_pallas.py`
+(`blend_forward_pallas`, `blend_backward_pallas`) and of
+`binocular3dgs_tpu/ops/blend.py` (`blend_forward_xla`,
+`blend_backward_xla`). Inputs are the field-major record table
 `records (R >= 10, P)` float32 (rows 0-1 mx,my; 2-4 conic a,b,c;
 5 opacity; 6-8 rgb; 9 depth; further rows are ignored) and the per-tile
-pair ranges `tile_start`, `tile_count` (T,) int32. Outputs are
+pair ranges `tile_start`, `tile_count` (T,) int32. The forward's outputs are
 `out5 (5, T, S)` float32 planes r, g, b, depth, T_final and
 `n_contrib (T, S)` int32 (index + 1 within the tile's segment of the last
 blended pair), S = tile_size**2, pixel s of tile t at
-(tx*ts + s % ts, ty*ts + s // ts).
+(tx*ts + s % ts, ty*ts + s // ts). The backward maps the cotangent
+`d_out5 (5, T, S)` to `d_records (R, P)`: for each pair of a tile's segment
+the sums over the tile's pixels of d_mx, d_my, d_a, d_b, d_c, d_op, d_r,
+d_g, d_b, d_depth, zero for every other slot and row.
 
-`blend_forward` launches the kernel (csrc/blend_forward.cu) for CUDA tensors
-and runs `blend_forward_torch` for CPU tensors; on a CUDA tensor it launches
-or raises, it never falls back. Forward only: a backward through it raises
-until the training slice brings the backward kernel.
+`blend_forward` launches the forward kernel (csrc/blend_forward.cu) for CUDA
+tensors and runs `blend_forward_torch` for CPU tensors; its autograd
+backward does the same with csrc/blend_backward.cu and
+`blend_backward_torch`. On a CUDA tensor a wrapper launches or raises, it
+never falls back. Kernels and plain versions compute alpha through one
+expression each (`splat_eval` in csrc/blend_common.cuh, `_splat` here),
+so the backward gates pairs exactly as the forward did.
 """
 
 from __future__ import annotations
@@ -28,9 +35,14 @@ ALPHA_CLAMP = 0.99
 LIVE_ROWS = 10
 KERNEL_TILE_SIZE = 16
 
-# Launches of the CUDA kernel since the last reset (the wrapper adds one per
+# 1 - ALPHA_CLAMP as float32 (0.01f): the floor of 1 - alpha when the
+# backward divides the transmittance back (blend.py: one_minus)
+ONE_MINUS_FLOOR = 1.0 - ALPHA_CLAMP
+
+# Launches of each CUDA kernel since the last reset (a wrapper adds one per
 # launch and nowhere else). Read and reset by chip_smoke.py.
 blend_forward_launches = 0
+blend_backward_launches = 0
 
 
 def _tile_pixel_coords(TW: int, TH: int, ts: int, device):
@@ -39,6 +51,21 @@ def _tile_pixel_coords(TW: int, TH: int, ts: int, device):
     px = (t % TW)[:, None] * ts + (s % ts)[None, :]
     py = (t // TW)[:, None] * ts + (s // ts)[None, :]
     return px.float(), py.float()
+
+
+def _splat(rec: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """(dx, dy, G, alpha) of the chunk records `rec (>= 6, T, C)` at
+    the pixels `px, py (T, S)`, each (T, S, C); alpha is 0 where the pair is
+    skipped (power > 0 or alpha < 1/255). The one alpha expression of both
+    plain versions, in the order of csrc/blend_common.cuh:splat_eval."""
+    dx = rec[0][:, None, :] - px[:, :, None]
+    dy = rec[1][:, None, :] - py[:, :, None]
+    a_, b_, c_ = rec[2][:, None, :], rec[3][:, None, :], rec[4][:, None, :]
+    power = -0.5 * (a_ * dx * dx + c_ * dy * dy) - b_ * dx * dy
+    G = torch.exp(power)
+    alpha = torch.clamp(rec[5][:, None, :] * G, max=ALPHA_CLAMP)
+    alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN), 0.0, alpha)
+    return dx, dy, G, alpha
 
 
 @torch.no_grad()
@@ -71,13 +98,8 @@ def blend_forward_torch(
         valid = k[None, :] < count[:, None]  # (T, C)
         idx = torch.clamp(start[:, None] + k[None, :], 0, max(P - 1, 0))
         rec = records[:LIVE_ROWS, idx]  # (10, T, C)
-        dx = rec[0][:, None, :] - px[:, :, None]  # (T, S, C)
-        dy = rec[1][:, None, :] - py[:, :, None]
-        a_, b_, c_ = rec[2][:, None, :], rec[3][:, None, :], rec[4][:, None, :]
-        power = -0.5 * (a_ * dx * dx + c_ * dy * dy) - b_ * dx * dy
-        alpha = torch.clamp(rec[5][:, None, :] * torch.exp(power), max=ALPHA_CLAMP)
-        skip = (power > 0.0) | (alpha < ALPHA_MIN) | ~valid[:, None, :] | done[..., None]
-        alpha = torch.where(skip, 0.0, alpha)
+        alpha = _splat(rec, px, py)[3]  # (T, S, C)
+        alpha = torch.where(~valid[:, None, :] | done[..., None], 0.0, alpha)
 
         # front-to-back chain within the chunk; a pixel stops before the
         # first pair that would take T below T_MIN (the raw chain agrees
@@ -103,6 +125,80 @@ def blend_forward_torch(
     return torch.cat([acc, T_run[None]]), n_contrib
 
 
+@torch.no_grad()
+def blend_backward_torch(
+    records: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    out5: torch.Tensor,
+    n_contrib: torch.Tensor,
+    d_out5: torch.Tensor,
+    TW: int,
+    TH: int,
+    ts: int,
+    chunk: int = 32,
+) -> torch.Tensor:
+    """Plain PyTorch blend backward with the semantics of
+    `blend_backward_xla` at the record level: each tile's segment is walked
+    back to front in chunks of `chunk` pairs from the tile's largest
+    `n_contrib`; the transmittance before each pair is rebuilt by division
+    from T_final (1 - alpha floored at 0.01), the d_out-weighted colour
+    response is carried as one suffix sum, and the 10 per-pair cotangents
+    are summed over the tile's pixels. Returns `d_records` shaped like
+    `records`, zero outside the walked pairs."""
+    dev = records.device
+    T, S = TW * TH, ts * ts
+    P = records.shape[1]
+    px, py = _tile_pixel_coords(TW, TH, ts, dev)
+    start = tile_start.long()
+    nc = n_contrib.long()
+    T_final = out5[4]
+    D4 = d_out5[:4]  # d_r, d_g, d_b, d_depth
+    tfd = d_out5[4] * T_final
+    d_records = torch.zeros_like(records)
+    n_walk = torch.minimum(nc.amax(dim=1), tile_count.long()) if T else nc.new_zeros(0)
+    max_walk = int(n_walk.max()) if T else 0
+    T_run = T_final.clone()
+    suf = torch.zeros(T, S, device=dev)
+    for c0 in reversed(range(0, max_walk, chunk)):
+        k = c0 + torch.arange(chunk, device=dev)  # (C,)
+        valid = k[None, :] < n_walk[:, None]  # (T, C)
+        idx = torch.clamp(start[:, None] + k[None, :], 0, max(P - 1, 0))
+        rec = records[:LIVE_ROWS, idx]  # (10, T, C)
+        dx, dy, G, alpha = _splat(rec, px, py)
+        keep = valid[:, None, :] & (k[None, None, :] < nc[..., None])
+        a = torch.where(keep, alpha, 0.0)
+        one_minus = torch.clamp(1.0 - a, min=ONE_MINUS_FLOOR)
+        sp = torch.flip(torch.cumprod(torch.flip(one_minus, [-1]), dim=-1), [-1])
+        T_i = T_run[..., None] / sp  # transmittance before each pair
+        w = a * T_i
+        r = (D4[0][..., None] * rec[6][:, None, :] + D4[1][..., None] * rec[7][:, None, :]
+             + D4[2][..., None] * rec[8][:, None, :] + D4[3][..., None] * rec[9][:, None, :])
+        q = w * r
+        suf_q = torch.flip(torch.cumsum(torch.flip(q, [-1]), dim=-1), [-1])
+        suffix_after = suf_q - q + suf[..., None]  # sum of q over the later pairs
+        inv_om = 1.0 / one_minus
+        d_alpha = T_i * r - inv_om * (suffix_after + tfd[..., None])
+        d_alpha = torch.where(keep & (a > 0.0), d_alpha, 0.0)
+        # alpha = min(0.99, op * G): a clamped alpha passes no gradient
+        d_alpha = torch.where(rec[5][:, None, :] * G <= ALPHA_CLAMP, d_alpha, 0.0)
+        d_pow = a * d_alpha
+        ca, cb, cc = rec[2][:, None, :], rec[3][:, None, :], rec[4][:, None, :]
+        rows = torch.stack([
+            (-(ca * dx + cb * dy) * d_pow).sum(1),
+            (-(cc * dy + cb * dx) * d_pow).sum(1),
+            (-0.5 * dx * dx * d_pow).sum(1),
+            (-dx * dy * d_pow).sum(1),
+            (-0.5 * dy * dy * d_pow).sum(1),
+            (G * d_alpha).sum(1),
+            *((w * D4[i][..., None]).sum(1) for i in range(4)),
+        ])  # (10, T, C)
+        d_records[:LIVE_ROWS, idx[valid]] = rows[:, valid]
+        T_run = T_i[..., 0]
+        suf = suf + q.sum(-1)
+    return d_records
+
+
 def _check_inputs(records, tile_start, tile_count, TW, TH, ts):
     if records.dtype != torch.float32 or records.ndim != 2 or records.shape[0] < LIVE_ROWS:
         raise ValueError(f"records must be (>= {LIVE_ROWS}, P) float32, got "
@@ -116,15 +212,21 @@ def _check_inputs(records, tile_start, tile_count, TW, TH, ts):
         raise ValueError(f"bad tile grid TW={TW} TH={TH} ts={ts}")
 
 
+def _check_kernel_inputs(name, ts, **tensors):
+    if ts != KERNEL_TILE_SIZE:
+        raise ValueError(f"the CUDA blend kernels are built for {KERNEL_TILE_SIZE}x"
+                         f"{KERNEL_TILE_SIZE} tiles, got tile_size={ts}")
+    for arg, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous {arg}")
+
+
 def _launch(records, tile_start, tile_count, TW, TH, ts):
     global blend_forward_launches
     from .cuda_build import load_library
 
-    if ts != KERNEL_TILE_SIZE:
-        raise ValueError(f"the CUDA blend kernel is built for {KERNEL_TILE_SIZE}x"
-                         f"{KERNEL_TILE_SIZE} tiles, got tile_size={ts}")
-    if not (records.is_contiguous() and tile_start.is_contiguous() and tile_count.is_contiguous()):
-        raise ValueError("blend_forward needs contiguous records, tile_start and tile_count")
+    _check_kernel_inputs("blend_forward", ts, records=records, tile_start=tile_start,
+                         tile_count=tile_count)
     T, S = TW * TH, ts * ts
     lib = load_library()
     out5 = torch.empty(5, T, S, dtype=torch.float32, device=records.device)
@@ -141,6 +243,53 @@ def _launch(records, tile_start, tile_count, TW, TH, ts):
     return out5, n_contrib
 
 
+def _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts):
+    global blend_backward_launches
+    from .cuda_build import load_library
+
+    d_out5 = d_out5.contiguous()
+    _check_kernel_inputs("blend_backward", ts, records=records, tile_start=tile_start,
+                         tile_count=tile_count, out5=out5, n_contrib=n_contrib)
+    T = TW * TH
+    lib = load_library()
+    # zeros: slots outside every walked segment (binning's sentinel slots
+    # included, whose cotangents the pair gather adds into depth rank 0)
+    # must stay 0; the kernel writes only walked pairs
+    d_records = torch.zeros_like(records)
+    with torch.cuda.device(records.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.b3dgs_blend_backward(
+            records.data_ptr(), records.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
+            out5.data_ptr(), n_contrib.data_ptr(), d_out5.data_ptr(), TW, T,
+            d_records.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"blend_backward kernel launch failed: cudaError {err}")
+    blend_backward_launches += 1
+    return d_records
+
+
+def blend_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts):
+    """d_records of the tile blend from the forward's inputs and outputs and
+    the cotangent `d_out5`: the CUDA kernel for CUDA tensors,
+    `blend_backward_torch` for CPU tensors."""
+    _check_inputs(records, tile_start, tile_count, TW, TH, ts)
+    T, S = TW * TH, ts * ts
+    for name, x, dtype, shape in (("out5", out5, torch.float32, (5, T, S)),
+                                  ("n_contrib", n_contrib, torch.int32, (T, S)),
+                                  ("d_out5", d_out5, torch.float32, (5, T, S))):
+        if x.dtype != dtype or x.shape != shape or x.device != records.device:
+            raise ValueError(f"{name} must be {shape} {dtype} on {records.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if records.is_cuda:
+        return _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5,
+                                TW, TH, ts)
+    if records.device.type == "cpu":
+        return blend_backward_torch(records, tile_start, tile_count, out5, n_contrib, d_out5,
+                                    TW, TH, ts)
+    raise ValueError(f"blend_backward: unsupported device {records.device}")
+
+
 class _BlendForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, records, tile_start, tile_count, TW, TH, ts):
@@ -151,11 +300,14 @@ class _BlendForward(torch.autograd.Function):
         else:
             raise ValueError(f"blend_forward: unsupported device {records.device}")
         ctx.mark_non_differentiable(n_contrib)
+        ctx.save_for_backward(records, tile_start, tile_count, out5, n_contrib)
+        ctx.grid = (TW, TH, ts)
         return out5, n_contrib
 
     @staticmethod
     def backward(ctx, d_out5, d_n_contrib):
-        raise NotImplementedError("blend backward: training slice")
+        d_records = blend_backward(*ctx.saved_tensors, d_out5, *ctx.grid)
+        return d_records, None, None, None, None, None
 
 
 def blend_forward(

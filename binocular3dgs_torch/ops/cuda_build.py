@@ -102,7 +102,15 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.b3dgs_blend_forward.argtypes = [P, LL, P, P, I, I, P, P, P]
-            lib.b3dgs_blend_forward.restype = I
+            signatures = {
+                "b3dgs_blend_forward": [P, LL, P, P, I, I, P, P, P],
+                "b3dgs_blend_backward": [P, LL, P, P, P, P, P, I, I, P, P],
+                "b3dgs_warp_forward": [P, P, I, I, I, P, P, P],
+                "b3dgs_warp_backward": [P, P, I, I, I, P, P],
+            }
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = I
             _lib = lib
         return _lib

@@ -1,9 +1,10 @@
 """Image metrics and losses.
 
-Counterpart of `binocular3dgs_tpu/ops/losses.py` for the serving path:
-L1 with the unnormalized mask convention, window-11 sigma-1.5 SSIM and PSNR
-(reference `utils/loss_utils.py`, `utils/image_utils.py:18`). Images are
-(C, H, W) float32, or (B, C, H, W). `smooth_loss` waits for training.
+Counterpart of `binocular3dgs_tpu/ops/losses.py`: L1 with the
+unnormalized mask convention, window-11 sigma-1.5 SSIM, PSNR and the
+edge-aware disparity smoothness of the binocular loss (reference
+`utils/loss_utils.py`, `utils/image_utils.py:18`). Images are (C, H, W)
+float32, or (B, C, H, W).
 
 SSIM blurs with a grouped convolution, as the reference does; cuDNN runs
 float32 convolutions in TF32 unless `torch.backends.cudnn.allow_tf32` is
@@ -59,6 +60,20 @@ def ssim(img1, img2, window_size: int = SSIM_WINDOW, size_average: bool = True):
     if size_average:
         return ssim_map.mean()
     return ssim_map.mean(dim=(1, 2, 3))
+
+
+def smooth_loss(disparity, image):
+    """Edge-aware disparity smoothness (reference `utils/loss_utils.py:68-91`):
+    disparity (H, W), image (3, H, W); central differences (x0.5) at the
+    interior pixels, image edges summed over channels, weight
+    exp(-0.33 |edge|)."""
+    ex_im = 0.5 * (image[:, 1:-1, 2:] - image[:, 1:-1, :-2]).sum(dim=0)
+    ey_im = 0.5 * (image[:, 2:, 1:-1] - image[:, :-2, 1:-1]).sum(dim=0)
+    ex_d = 0.5 * (disparity[1:-1, 2:] - disparity[1:-1, :-2])
+    ey_d = 0.5 * (disparity[2:, 1:-1] - disparity[:-2, 1:-1])
+    wx = torch.exp(-0.33 * torch.abs(ex_im))
+    wy = torch.exp(-0.33 * torch.abs(ey_im))
+    return torch.mean(torch.abs(wx * ex_d)) + torch.mean(torch.abs(wy * ey_d))
 
 
 def psnr(img1, img2, mask=None):

@@ -13,10 +13,13 @@ CUDA rasterizer's forward preprocess, SURVEY.md §3.5):
   * the tight opacity-aware binning extents (`bin_extent`)
 
 Component-wise elementwise algebra on (N,) tensors, as the JAX version, so
-the two round alike. Forward only: the training slice adds the
-`mean2d_carrier` input and autograd. The JAX package's precomputed-color,
-precomputed-covariance and scaling-modifier inputs have no caller there and
-are not carried.
+the two round alike; gradients are plain PyTorch autograd. The optional
+`mean2d_carrier` (N, 2) of zeros is added to the pixel centre in NDC
+half-extent units, `mean2d + carrier * (0.5 W, 0.5 H)`, as the JAX version
+adds it: its gradient is the reference's `means2D.grad`, the densification
+statistic, whose 0.0002 threshold is stated in those units. The JAX
+package's precomputed-color, precomputed-covariance and scaling-modifier
+inputs have no caller here and are not carried.
 """
 
 from __future__ import annotations
@@ -131,6 +134,7 @@ def project_gaussians(
     sh_degree: int,
     dilation: float = 0.3,
     znear_cull: float = 0.2,
+    mean2d_carrier: torch.Tensor | None = None,
 ) -> ProjectedGaussians:
     """Vectorized vertex stage over the capacity axis."""
     N = xyz.shape[0]
@@ -150,6 +154,8 @@ def project_gaussians(
     px = ((ndc[..., 0] + 1.0) * W - 1.0) * 0.5
     py = ((ndc[..., 1] + 1.0) * H - 1.0) * 0.5
     mean2d = torch.stack([px, py], dim=-1)
+    if mean2d_carrier is not None:
+        mean2d = mean2d + mean2d_carrier * mean2d.new_tensor([0.5 * W, 0.5 * H])
 
     cov2d = ewa_cov2d(xyz, compute_cov3d(scaling, rotation_raw), camera, dilation, valid=in_front)
 
@@ -208,7 +214,10 @@ def project_gaussians(
 
 
 def project_for_render(
-    camera: Camera, model: GaussianModel, raster: RasterConfig | None = None
+    camera: Camera,
+    model: GaussianModel,
+    raster: RasterConfig | None = None,
+    mean2d_carrier: torch.Tensor | None = None,
 ) -> ProjectedGaussians:
     """The vertex stage of a render: `model`'s activated parameters through
     `project_gaussians` with the raster config's dilation and cull."""
@@ -224,4 +233,5 @@ def project_for_render(
         sh_degree=model.active_sh_degree,
         dilation=raster.dilation,
         znear_cull=raster.znear_cull,
+        mean2d_carrier=mean2d_carrier,
     )

@@ -86,9 +86,15 @@ def blend_dense(
     return image, depth_out, 1.0 - T_final
 
 
-def render_dense(camera: Camera, model: GaussianModel, bg: torch.Tensor) -> RenderOutput:
-    """Full dense render on the model's device."""
-    proj = project_for_render(camera, model)
+def render_dense(
+    camera: Camera,
+    model: GaussianModel,
+    bg: torch.Tensor,
+    mean2d_carrier: torch.Tensor | None = None,
+) -> RenderOutput:
+    """Full dense render on the model's device; differentiable by plain
+    autograd, `mean2d_carrier` included."""
+    proj = project_for_render(camera, model, mean2d_carrier=mean2d_carrier)
     image, depth, alpha = blend_dense(proj, camera.width, camera.height, bg)
     return RenderOutput(
         image=image, depth=depth, alpha=alpha, radii=proj.radius, visible=proj.radius > 0

@@ -1,6 +1,6 @@
 """The port's plain blend (blend_forward_torch) against the Pallas kernel
 blend_forward_pallas in interpret mode, on the same (16, P) records and tile
-ranges; and the wrapper's CPU path, input checks and backward guard. The
+ranges; and the wrapper's CPU path, input checks and backward on empty tiles. The
 CUDA kernel itself is held against the plain version in test_torch_cuda.py
 (on a card) and in chip_smoke.py."""
 
@@ -143,5 +143,5 @@ def test_wrapper_rejects_bad_inputs_and_backward():
         blend_forward(rec, start[:3], count, 2, 2, 16)
     out5, _ = blend_forward(rec.requires_grad_(), start, count, 2, 2, 16)
     np.testing.assert_array_equal(out5[4].detach().numpy(), 1.0)  # empty tiles: T = 1
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out5.sum().backward()
+    out5.sum().backward()  # the backward runs (no pairs: zero cotangents)
+    assert rec.grad.shape == rec.shape and not rec.grad.any()

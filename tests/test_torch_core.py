@@ -1,5 +1,6 @@
-"""Port core (cameras, spherical harmonics, quaternions, transforms) against
-binocular3dgs_tpu.core on the same numpy inputs."""
+"""Port core (cameras, the binocular camera shift, spherical harmonics,
+quaternions, transforms, the xyz LR schedule) against binocular3dgs_tpu.core
+on the same numpy inputs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,8 +10,9 @@ import torch
 from binocular3dgs_tpu.core import sh as jsh
 from binocular3dgs_tpu.core import transforms as jtf
 from binocular3dgs_tpu.core.camera import make_camera as jax_make_camera
+from binocular3dgs_tpu.core.camera import shift_camera as jax_shift_camera
 from binocular3dgs_torch.core import sh, transforms
-from binocular3dgs_torch.core.camera import make_camera
+from binocular3dgs_torch.core.camera import make_camera, shift_camera
 
 CAMERAS = [
     dict(R=np.eye(3), T=np.zeros(3), fovx=0.9, fovy=0.7, width=64, height=48),
@@ -108,3 +110,36 @@ def test_config_interchange(tmp_path):
     assert load_config(str(tmp_path / "port.json")) == cfg
     with pytest.raises(TypeError):
         RasterConfig(backend="torch")  # one blend path: chosen by the tensors' device
+
+
+@pytest.mark.parametrize("i", range(len(CAMERAS)))
+@pytest.mark.parametrize("trans", [0.0, 0.3, -0.17])
+def test_shift_camera_matches_jax(i, trans):
+    jc = jax_shift_camera(jax_make_camera(**CAMERAS[i]), np.float32(trans))
+    pc = shift_camera(make_camera(**CAMERAS[i], device="cpu"), trans)
+    # float32 3x3 and 4x4 products on the device: XLA's CPU dot and
+    # PyTorch's matmul may round the last bit differently
+    for name in ("world_view", "full_proj", "cam_center", "proj"):
+        got = getattr(pc, name)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jc, name)), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+    assert (pc.width, pc.height) == (jc.width, jc.height)
+    if trans == 0.0:
+        base = make_camera(**CAMERAS[i], device="cpu")
+        np.testing.assert_allclose(pc.world_view.numpy(), base.world_view.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(lr_init=1.6e-4, lr_final=1.6e-6, lr_delay_mult=0.01, max_steps=30_000),
+    dict(lr_init=1e-2, lr_final=1e-4, lr_delay_steps=100, lr_delay_mult=0.1, max_steps=500),
+    dict(lr_init=0.0, lr_final=0.0),
+])
+def test_expon_lr_schedule_matches_jax(kw):
+    got = transforms.expon_lr_schedule(**kw)
+    want = jtf.expon_lr_schedule(**kw)
+    for step in (-1, 0, 1, 50, 100, 499, 500, 15_000, 30_000, 40_000):
+        g, w = got(step), float(want(step))
+        assert isinstance(g, float)
+        # float64 on the host against float32 under JAX
+        assert abs(g - w) <= 1e-6 * abs(w), (step, g, w)

@@ -1,5 +1,7 @@
-"""Tests that need a CUDA card: the hand-written blend kernel against its
-plain PyTorch version, and its launch counter. They skip without a card.
+"""Tests that need a CUDA card: the hand-written kernels (blend forward B1,
+blend backward B2, warp forward W1 and backward W2) against their plain
+PyTorch versions, and their launch counters around a render and a training
+step. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -13,10 +15,18 @@ import torch
 
 from binocular3dgs_torch.core.camera import make_camera
 from binocular3dgs_torch.models.gaussians import from_numpy
-from binocular3dgs_torch.ops import blend_cuda
+from binocular3dgs_torch.config import Config
+from binocular3dgs_torch.ops import blend_cuda, warp
 from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
-from binocular3dgs_torch.ops.blend_cuda import blend_forward, blend_forward_torch
+from binocular3dgs_torch.ops.blend_cuda import (
+    blend_backward,
+    blend_backward_torch,
+    blend_forward,
+    blend_forward_torch,
+)
 from binocular3dgs_torch.ops.rasterize import _build_fields, project_for_render, render_tiled
+from binocular3dgs_torch.train.state import init_train_state
+from binocular3dgs_torch.train.step import make_train_step
 
 TS = 16
 
@@ -88,3 +98,75 @@ def test_render_counts_one_launch(cuda_device):
     torch.cuda.synchronize()
     assert blend_cuda.blend_forward_launches == before + 1
     assert out.image.shape == (3, 48, 64) and torch.isfinite(out.image).all()
+
+
+SCENES = [
+    (0, 64, 64, 48, (0.2, 0.95)),
+    (1, 400, 200, 150, (0.9, 0.99)),  # heavy overdraw: the termination path
+    (2, 300, 50, 38, (0.2, 0.95)),  # size not a multiple of the tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,w,h,opacity", SCENES)
+def test_backward_kernel_matches_plain(cuda_device, seed, n, w, h, opacity):
+    model, cam = scene(seed, n, w, h, cuda_device, opacity)
+    records, start, count, TW, TH = records_for(model, cam)
+    out5, nc = blend_forward_torch(records, start, count, TW, TH, TS)
+    g = torch.Generator().manual_seed(seed)
+    d_out5 = torch.randn(out5.shape, generator=g).to(cuda_device)
+    before = blend_cuda.blend_backward_launches
+    got = blend_backward(records, start, count, out5, nc, d_out5, TW, TH, TS)
+    torch.cuda.synchronize()
+    assert blend_cuda.blend_backward_launches == before + 1
+    want = blend_backward_torch(records, start, count, out5, nc, d_out5, TW, TH, TS)
+    # transmittance rebuilt by one division per pair here, by chunk suffix
+    # products there, and the pixel sums in another order: each of the ten
+    # rows within 1e-3 of its largest entry
+    for row in range(10):
+        scale = want[row].abs().max().item()
+        assert (got[row] - want[row]).abs().max().item() <= 1e-3 * scale + 1e-12, row
+    assert not got[10:].any() and got[:10].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [4.0, 40.0])  # mostly in range; mostly out of it
+def test_warp_kernels_match_plain(cuda_device, spread):
+    g = torch.Generator().manual_seed(int(spread))
+    image = torch.rand(3, 75, 101, generator=g).to(cuda_device)
+    disp = ((torch.rand(75, 101, generator=g) - 0.5) * spread).to(cuda_device)
+    d_out = torch.randn(3, 75, 101, generator=g).to(cuda_device)
+    before = (warp.warp_forward_launches, warp.warp_backward_launches)
+    out, diff = warp.warp_forward(image, disp)
+    d_img = warp.warp_backward(disp, d_out)
+    torch.cuda.synchronize()
+    assert (warp.warp_forward_launches, warp.warp_backward_launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    want_out, want_diff = warp.warp_forward_torch(image, disp)
+    # the same two float32 products (no FMA contraction on either side)
+    assert (out - want_out).abs().max().item() <= 1e-6
+    assert (diff - want_diff).abs().max().item() <= 1e-6
+    want_d_img = warp.warp_backward_torch(disp, d_out)
+    # shared-memory atomics add each column's few taps in a varying order
+    assert (d_img - want_d_img).abs().max().item() <= 1e-5 * want_d_img.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_train_step_counts_launches(cuda_device):
+    model, cam = scene(4, 200, 96, 64, cuda_device)
+    state = init_train_state(model)
+    step = make_train_step(
+        lambda c, m, bg, mean2d_carrier=None: render_tiled(c, m, bg, device=cuda_device,
+                                                           mean2d_carrier=mean2d_carrier),
+        Config(), 1.0, binocular=True, use_alpha_weight=False)
+    gt = torch.rand(3, 64, 96, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    aw = torch.zeros(64, 96, device=cuda_device)
+    counters = ("blend_forward_launches", "blend_backward_launches")
+    before = [getattr(blend_cuda, c) for c in counters] + [warp.warp_forward_launches,
+                                                           warp.warp_backward_launches]
+    state, metrics = step(state, cam, gt, aw, 2, 0.2, torch.zeros(3, device=cuda_device))
+    torch.cuda.synchronize()
+    after = [getattr(blend_cuda, c) for c in counters] + [warp.warp_forward_launches,
+                                                          warp.warp_backward_launches]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 1, 1]
+    assert torch.isfinite(metrics.loss) and float(metrics.disparity_loss) > 0

@@ -25,6 +25,10 @@ def imported_modules(path: Path):
 
 def test_scans_the_port():
     assert len(FILES) > 15 and (REPO / "chip_smoke.py").exists()
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    for module in ("ops/warp.py", "ops/knn.py", "models/densify.py", "train/state.py",
+                   "train/step.py", "train/loop.py"):
+        assert f"binocular3dgs_torch/{module}" in names, module
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -1,5 +1,5 @@
-"""The port's image metrics (l1_loss, ssim, psnr) against the JAX package's
-on the same numpy-seeded images."""
+"""The port's image metrics and losses (l1_loss, ssim, psnr, smooth_loss)
+against the JAX package's on the same numpy-seeded images."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,3 +45,21 @@ def test_psnr_and_l1_match_jax(masked):
     want_l1 = jax_losses.l1_loss(jnp.asarray(a), jnp.asarray(b), mask=m_j)
     got_l1 = losses.l1_loss(torch.from_numpy(a), torch.from_numpy(b), mask=m_t)
     assert abs(float(got_l1) - float(want_l1)) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 52), (3, 7, 5)])
+def test_smooth_loss_matches_jax(shape):
+    a, _, mask = images(2, shape)
+    disp = np.random.default_rng(3).normal(size=shape[1:]).astype(np.float32) * 5
+    for d_np in (disp * mask[0], disp):  # masked as in the train step, and dense
+        want = jax_losses.smooth_loss(jnp.asarray(d_np), jnp.asarray(a))
+        got = losses.smooth_loss(torch.from_numpy(d_np), torch.from_numpy(a))
+        assert abs(float(got) - float(want)) <= TOL * max(1.0, abs(float(want)))
+    # gradients away from |x|'s kink at 0 (the masked zeros), where JAX and
+    # PyTorch pick different subgradients
+    import jax
+
+    g_want = jax.grad(lambda x: jax_losses.smooth_loss(x, jnp.asarray(a)))(jnp.asarray(disp))
+    d = torch.from_numpy(disp).requires_grad_()
+    (g_got,) = torch.autograd.grad(losses.smooth_loss(d, torch.from_numpy(a)), [d])
+    np.testing.assert_allclose(g_got.numpy(), np.asarray(g_want), atol=1e-7)
