@@ -68,6 +68,63 @@ def _splat(rec: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return dx, dy, G, alpha
 
 
+def _alpha_extent(rec: torch.Tensor):
+    """(rx, ry): the conservative half-extents, in pixels, of the box around
+    each pair's mean outside which `_splat`'s alpha is 0, from the float32
+    rows 0-5 (mean x, y, conic a, b, c, opacity) of `rec`; inf where
+    nothing is culled (mean or conic not finite, conic not clearly positive
+    definite), else -1 where the pair never blends (opacity < 1/255), NaN
+    where the opacity is NaN. The plain mirror of
+    csrc/blend_common.cuh:alpha_extent, with the same formula and margins,
+    so that the tests can hold the kernels' cull test against `_splat`; the
+    plain versions walk every pair and need no cull."""
+    mx, my, a, b, c, op = rec[0], rec[1], rec[2], rec[3], rec[4], rec[5]
+    inf = float("inf")
+    finite = (mx.abs() + my.abs() + a.abs() + b.abs() + c.abs()) < inf
+    det = a * c - b * b
+    ac = a * c
+    k = (2.0 * torch.log(255.0 * op) + 0.01) * (1.01 + 1e-5 * (ac / det))
+    unbounded = ~finite | ~(a > 0.0) | ~(det > 1e-4 * ac) | ~(ac < inf)
+    never = finite & (op < ALPHA_MIN)
+    ext = []
+    for num in (c, a):
+        r = torch.sqrt(k * num / det) * 1.01 + 1.0
+        ext.append(torch.where(never, -1.0, torch.where(unbounded, float("inf"), r)))
+    return ext[0], ext[1]
+
+
+# the kernels' cull cells: cell c of a 16x16 tile is the 8x4 pixels at
+# x = 8 * (c // 4) + 0..7, y = 4 * (c % 4) + 0..3 from the tile's corner
+CELL_W, CELL_H = 8, 4
+CELL_ROWS = KERNEL_TILE_SIZE // CELL_H  # 4
+CELLS = KERNEL_TILE_SIZE // CELL_W * CELL_ROWS  # 8
+
+
+def _pixel_cell(s: torch.Tensor) -> torch.Tensor:
+    """The cell of pixel s of a 16x16 tile, at (s % 16, s // 16)."""
+    ts = KERNEL_TILE_SIZE
+    return (s % ts) // CELL_W * CELL_ROWS + (s // ts) // CELL_H
+
+
+def _cell_mask(rec: torch.Tensor, tx0: torch.Tensor, ty0: torch.Tensor) -> torch.Tensor:
+    """(CELLS, ...) bool: whether each pair of `rec` (rows 0-5, float32) may
+    blend a pixel of each cell of the tile whose corner is (tx0, ty0)
+    (float32, broadcast against the pairs). False only where the pair's
+    `_alpha_extent` box misses the cell's pixel centres, so True in every
+    cell where the mean is not finite (infinite extents) or a value is NaN.
+    The plain mirror of csrc/blend_common.cuh:cell_mask."""
+    rx, ry = _alpha_extent(rec)
+    mx, my = rec[0], rec[1]
+    cells = []
+    for c in range(CELLS):
+        x0 = tx0 + CELL_W * (c // CELL_ROWS)
+        y0 = ty0 + CELL_H * (c % CELL_ROWS)
+        gx = torch.clamp(torch.maximum(x0 - mx, mx - (x0 + (CELL_W - 1))), min=0.0)
+        gy = torch.clamp(torch.maximum(y0 - my, my - (y0 + (CELL_H - 1))), min=0.0)
+        cells.append(~(gx > rx) & ~(gy > ry))
+    return torch.stack(cells)
+
+
 @torch.no_grad()
 def blend_forward_torch(
     records: torch.Tensor,

@@ -13,7 +13,10 @@ fails (non-zero exit) if any phase fails:
      with numpy from --seed, 6 pairs per gaussian
   4. kernel parity at full width: the blend kernel against its plain PyTorch
      version on the records of the port's project -> bin -> gather; kernel
-     time, plain time and the kernel's bound
+     time, plain time, the kernel's bound (from the pair-pixels that blend)
+     and the dense walk's; then the same at the overdraw shape (scales in
+     [0.02, 0.05], opacities in [0.88, 0.99], pairs_per_gaussian doubled
+     until no pair overflows), where most pixels terminate early
   5. main path: 8 views on an arc through render_tiled on the card, with
      the kernel launch counts read around exactly that run; render and
      per-stage times; an end-to-end check against the plain blend and a
@@ -23,7 +26,8 @@ fails (non-zero exit) if any phase fails:
      whose cfg_args.json sets `eval`
   7. backward kernel parity at full width: the blend backward kernel against
      its plain version on phase 4's records, the forward kernel's outputs
-     and a seeded cotangent, row by row; kernel time, plain time and bound
+     and a seeded cotangent, row by row; kernel time, plain time and bound;
+     at both of phase 4's shapes
   8. warp kernel parity at full width: the warp forward and backward kernels
      against their plain versions on phase 5's view-0 render and its
      disparity; times and bounds
@@ -64,15 +68,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 # per pair-pixel evaluation of the blend: one expf (counted as one
-# instruction) and ~15 FP32 multiply/add/compare instructions
+# instruction) and ~15 FP32 multiply/add/compare instructions. The bound
+# counts them for the pair-pixels the data needs evaluated: those that blend
+# (alpha > 0 before the pixel terminates, the terminating pair included).
+# A pair whose alpha is 0 at a pixel need not be evaluated there; the
+# kernels skip most of them by culling, so a count of every evaluation a
+# dense walk makes (printed as dense_bound_ms) is no bound for them.
 BLEND_INSTR_PER_EVAL = 16
 # bytes per valid pair read (10 float32 fields), per tile (start, count),
 # per pixel written (5 float32 planes + 1 int32)
 BLEND_BYTES_PER_PAIR, BLEND_BYTES_PER_TILE, BLEND_BYTES_PER_PIXEL = 40, 8, 24
-# blend backward, counted from csrc/blend_backward.cu: the alpha of every
-# pair below a pixel's n_contrib (as the forward's), and for each pair that
-# blended there ~45 FP32 instructions of cotangent algebra plus the ~10
-# additions that sum its ten terms over the tile's pixels
+# blend backward, per pair-pixel that blended: its alpha (16, as the
+# forward's), ~45 FP32 instructions of cotangent algebra and the ~10
+# additions that sum its ten terms over the tile's pixels; the dense count
+# adds the alpha of every other pair below a pixel's n_contrib
 BWD_INSTR_PER_EVAL, BWD_INSTR_PER_HIT = 16, 55
 # bytes: 40 read + 40 written per walked pair, per pixel 28 read (T_final,
 # five cotangent planes, n_contrib), per tile 8
@@ -86,6 +95,9 @@ WARP_NO_LIBRARY = ("none: grid_sample zeroes each out-of-range tap, the warp zer
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 W, H, N_GAUSS, PAIRS_PER_GAUSSIAN = 1008, 756, 100_000, 6
+# the overdraw shape of phases 4 and 7: make_workload's draw with large,
+# nearly opaque splats, so that most pixels terminate early
+OVERDRAW_SCALES, OVERDRAW_OPACITY = (0.02, 0.05), (0.88, 0.99)
 FOVX, FOVY = 0.9, 0.7
 N_VIEWS = 8
 
@@ -121,12 +133,14 @@ def median_ms(torch, fn, warmup=3, iters=20):
 
 
 def kernel_device_ms(torch, fn, name, reps=20):
-    """Device time per call of the kernels whose name holds `name`, from
+    """Device time per launch of the kernels whose name holds `name`, from
     torch.profiler over `reps` calls after one warm-up: the kernel alone,
     without the wrapper's host time, which an event pair around one short
     call also holds. Before each call a 64 MiB write evicts the 50 MB L2, so
     the kernel reads its inputs from device memory, as its bound assumes.
-    None when the profiler sees no device time."""
+    The mean is over the launches the profiler recorded (it has dropped
+    some in a run, which a division by `reps` would read as a faster
+    kernel). None when the profiler sees no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,9 +152,12 @@ def kernel_device_ms(torch, fn, name, reps=20):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    return us / 1e3 / reps if us > 0 else None
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key]
+    us, launches = sum(e.self_device_time_total for e in found), sum(e.count for e in found)
+    if launches != reps:
+        log(f"[profiler] {name}: {launches} of {reps} launches recorded")
+    return us / 1e3 / launches if us > 0 else None
 
 
 def kernel_times(torch, fn, name):
@@ -152,19 +169,26 @@ def kernel_times(torch, fn, name):
     return (event_ms if device_ms is None else device_ms), event_ms
 
 
-def make_workload(seed, n=N_GAUSS, width=W, height=H):
+def make_workload(seed, n=N_GAUSS, width=W, height=H, scales=(0.005, 0.02), opacity=None):
     """The bench.py workload, drawn in the same order from the same seed:
     xyz in [-2,2]x[-1.5,1.5]x[3,9], SH degree 1 (rest bands zero), opacity
-    logits in [-2,1], scales in [0.005,0.02], identity rotations, then the
-    (3, H, W) ground-truth image of the training step."""
+    logits in [-2,1] (or the logits of opacities uniform in `opacity`),
+    scales in `scales`, identity rotations, then the (3, H, W) ground-truth
+    image of the training step."""
     rng = np.random.default_rng(seed)
     xyz = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 9, n)], 1)
+    f_dc = rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.3
+    if opacity is None:
+        logits = rng.uniform(-2, 1, (n, 1))
+    else:
+        p = rng.uniform(*opacity, (n, 1))
+        logits = np.log(p / (1 - p))
     params = dict(
         xyz=xyz.astype(np.float32),
-        f_dc=rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.3,
+        f_dc=f_dc,
         f_rest=np.zeros((n, 3, 3), np.float32),
-        opacity=rng.uniform(-2, 1, (n, 1)).astype(np.float32),
-        scaling=np.log(rng.uniform(0.005, 0.02, (n, 3))).astype(np.float32),
+        opacity=logits.astype(np.float32),
+        scaling=np.log(rng.uniform(*scales, (n, 3))).astype(np.float32),
         rotation=np.concatenate([np.ones((n, 1)), np.zeros((n, 3))], 1).astype(np.float32),
     )
     gt = rng.random((3, height, width)).astype(np.float32)
@@ -183,10 +207,13 @@ def arc_poses(n):
     return poses
 
 
-def needed_evaluations(torch, records, tile_start, tile_count, n_contrib, TW, TH, ts, chunk=32):
-    """Pair-pixel evaluations the blend's data needs: each pixel evaluates
-    its tile's pairs up to and including the one that terminates it (the
-    first pair past its last blended one with alpha > 0), or all of them."""
+def forward_work(torch, records, tile_start, tile_count, n_contrib, TW, TH, ts, chunk=32):
+    """(pairs read, dense evaluations, hits, terminated pixels) of the blend
+    forward on this data. A dense walk evaluates each pixel's pairs up to
+    and including the one that terminates it (the first pair past its last
+    blended one with alpha > 0), or all of them; a tile needs its pairs read
+    up to its pixels' last such evaluation; the hits are the evaluations
+    whose alpha is > 0: the pairs a pixel blended and the terminating one."""
     from binocular3dgs_torch.ops.blend_cuda import _splat, _tile_pixel_coords
 
     px, py = _tile_pixel_coords(TW, TH, ts, records.device)
@@ -194,15 +221,18 @@ def needed_evaluations(torch, records, tile_start, tile_count, n_contrib, TW, TH
     nc = n_contrib.long()
     big = torch.iinfo(torch.int64).max
     first_kill = torch.full_like(nc, big)
+    blended = 0
     for c0 in range(0, int(count.max()), chunk):
         k = c0 + torch.arange(chunk, device=records.device)
         valid = k[None, :] < count[:, None]
         rec = records[:6, torch.clamp(start[:, None] + k[None, :], max=records.shape[1] - 1)]
-        alpha = _splat(rec, px, py)[3]
-        hit = (alpha > 0) & valid[:, None, :] & (k >= nc[..., None])
-        first_kill = torch.minimum(first_kill, torch.where(hit, k, big).amin(-1))
+        live = (_splat(rec, px, py)[3] > 0) & valid[:, None, :]
+        blended += int((live & (k < nc[..., None])).sum())
+        first_kill = torch.minimum(first_kill,
+                                   torch.where(live & (k >= nc[..., None]), k, big).amin(-1))
     evals = torch.where(first_kill < big, first_kill + 1, count[:, None])
-    return int(evals.sum())
+    killed = int((first_kill < big).sum())
+    return int(evals.amax(1).sum()), int(evals.sum()), blended + killed, killed
 
 
 def phase_environment(torch):
@@ -231,32 +261,76 @@ def phase_build():
     log(f"[2 build] {lib} in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernel_parity(torch, model, cam, raster):
+def cell_evaluations(torch, records, tile_start, tile_count, TW, ts):
+    """Pair-pixel evaluations that the kernels' per-cell cull leaves before
+    any early exit: the pixels of each (pair, 8x4 cell of its tile) whose
+    conservative alpha box meets the cell (blend_cuda._cell_mask, the mirror
+    of csrc/blend_common.cuh:cell_mask)."""
+    from binocular3dgs_torch.ops.blend_cuda import CELL_H, CELL_W, _cell_mask
+
+    dev = records.device
+    count = tile_count.long()
+    tile = torch.repeat_interleave(torch.arange(count.numel(), device=dev), count)
+    pair = torch.repeat_interleave(tile_start.long() - torch.cumsum(count, 0) + count, count) \
+        + torch.arange(int(count.sum()), device=dev)
+    x0, y0 = (tile % TW * ts).float(), (tile // TW * ts).float()
+    return CELL_W * CELL_H * int(_cell_mask(records[:, pair], x0, y0).sum())
+
+
+def bin_records(torch, model, cam, raster, grow=False):
+    """(records, tile_start, tile_count, TW, TH, ts, binning, pair capacity)
+    of the port's project -> bin -> gather for `cam`. With `grow`,
+    pairs_per_gaussian doubles from raster's until no pair overflows."""
     from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
-    from binocular3dgs_torch.ops.blend_cuda import blend_forward, blend_forward_torch
     from binocular3dgs_torch.ops.rasterize import _build_fields, project_for_render
 
     ts = raster.tile_size
-    TW, TH = tile_grid(W, H, ts)
-    T = TW * TH
+    TW, TH = tile_grid(cam.width, cam.height, ts)
     proj = project_for_render(cam, model, raster=raster)
-    cap = raster.pairs_per_gaussian * model.capacity
-    b = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, W, H, ts, cap)
+    ppg = raster.pairs_per_gaussian
+    while True:
+        cap = ppg * model.capacity
+        b = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, cam.width, cam.height, ts,
+                          cap)
+        if not grow or int(b.num_pairs) <= cap:
+            break
+        ppg *= 2
     records = _build_fields(proj)[:, b.order][:, b.pair_gauss].contiguous()
-    args = (records, b.tile_start, b.tile_count, TW, TH, ts)
+    return records, b.tile_start, b.tile_count, TW, TH, ts, b, cap
 
+
+def timed_once(torch, fn):
+    """(result, device ms) of one call of fn, CUDA events."""
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def phase_kernel_parity(torch, model, cam, raster, tag="[4 parity]", grow=False):
+    """B1 against its plain version at full width, its times and bounds.
+    `grow` raises pairs_per_gaussian until nothing overflows (the overdraw
+    shape); the plain version is then timed by its one parity call."""
+    from binocular3dgs_torch.ops.blend_cuda import blend_forward, blend_forward_torch
+
+    records, start, count, TW, TH, ts, b, cap = bin_records(torch, model, cam, raster, grow)
+    T = TW * TH
+    args = (records, start, count, TW, TH, ts)
     out5, nc = blend_forward(*args)
     torch.cuda.synchronize()
-    want5, want_nc = blend_forward_torch(*args)
+    (want5, want_nc), plain_once_ms = timed_once(torch, lambda: blend_forward_torch(*args))
     rgbT = [0, 1, 2, 4]
     err_rgbT = (out5[rgbT] - want5[rgbT]).abs().max().item()
     err_depth = (out5[3] - want5[3]).abs().max().item()
     depth_tol = 1e-5 * want5[3].abs().max().item() + 1e-4
     nc_equal = (nc == want_nc).double().mean().item()
-    num_pairs, valid_pairs = int(b.num_pairs), int(b.tile_count.sum())
-    log(f"[4 parity] num_pairs {num_pairs} / capacity {cap} (blended {valid_pairs}); "
-        f"max tile pairs {int(b.tile_count.max())}")
-    log(f"[4 parity] max|diff| r,g,b,T_final {err_rgbT:.3e} (tol 1e-4); depth "
+    num_pairs, valid_pairs = int(b.num_pairs), int(count.sum())
+    log(f"{tag} num_pairs {num_pairs} / capacity {cap} ({cap // model.capacity} per gaussian; "
+        f"blended {valid_pairs}); max tile pairs {int(count.max())}; mean T_final "
+        f"{want5[4].mean().item():.4f}")
+    log(f"{tag} max|diff| r,g,b,T_final {err_rgbT:.3e} (tol 1e-4); depth "
         f"{err_depth:.3e} (tol {depth_tol:.3e}); n_contrib equal on {nc_equal:.6f} "
         f"(tol >= 0.999)")
     check(err_rgbT <= 1e-4, f"blend kernel r,g,b,T_final differ by {err_rgbT}")
@@ -265,16 +339,22 @@ def phase_kernel_parity(torch, model, cam, raster):
     check(num_pairs <= cap, f"pair capacity overflow: {num_pairs} > {cap}")
 
     ms, event_ms = kernel_times(torch, lambda: blend_forward(*args), "blend_forward_kernel")
-    plain_ms = median_ms(torch, lambda: blend_forward_torch(*args), warmup=1, iters=3)
-    evals = needed_evaluations(torch, records, b.tile_start, b.tile_count, want_nc, TW, TH, ts)
-    bytes_ = (BLEND_BYTES_PER_PAIR * valid_pairs + BLEND_BYTES_PER_TILE * T
+    plain_ms = plain_once_ms if grow else median_ms(
+        torch, lambda: blend_forward_torch(*args), warmup=1, iters=3)
+    read, evals, hits, killed = forward_work(torch, records, start, count, want_nc, TW, TH, ts)
+    culled_evals = cell_evaluations(torch, records, start, count, TW, ts)
+    bytes_ = (BLEND_BYTES_PER_PAIR * read + BLEND_BYTES_PER_TILE * T
               + BLEND_BYTES_PER_PIXEL * T * ts * ts)
-    instr = BLEND_INSTR_PER_EVAL * evals
-    bytes_ms, ops_ms = bytes_ / HBM_BYTES_PER_S * 1e3, instr / FP32_INSTR_PER_S * 1e3
-    log(f"[4 parity] kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events around the "
-        f"wrapper), plain {plain_ms:.3f} ms; bound: {bytes_} B -> "
-        f"{bytes_ms:.4f} ms, {evals} evaluations x {BLEND_INSTR_PER_EVAL} FP32 instructions "
-        f"at {FP32_INSTR_PER_S:.3g}/s -> {ops_ms:.4f} ms")
+    bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound(bytes_, BLEND_INSTR_PER_EVAL * hits)
+    dense_bound_ms = kernel_bound(bytes_, BLEND_INSTR_PER_EVAL * evals)[0]
+    log(f"{tag} kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events around the "
+        f"wrapper), plain {plain_ms:.3f} ms; {killed} of {T * ts * ts} pixels terminate; "
+        f"bound: {read} pairs read, {bytes_} B -> {bytes_ms:.4f} ms, {hits} "
+        f"hits x {BLEND_INSTR_PER_EVAL} FP32 instructions at {FP32_INSTR_PER_S:.3g}/s -> "
+        f"{ops_ms:.4f} ms; dense bound ({evals} evaluations) {dense_bound_ms:.4f} ms; the cell "
+        f"cull leaves {culled_evals} of the {ts * ts * valid_pairs} "
+        f"pair-pixel evaluations of a dense walk without early exit")
+    check(ms >= bound_ms, f"blend_forward reads {ms} ms, below its bound {bound_ms} ms")
     kernel = dict(
         name="blend_forward",
         route="cuda",
@@ -284,12 +364,14 @@ def phase_kernel_parity(torch, model, cam, raster):
         max_abs_err=max(err_rgbT, err_depth),
         parity=dict(rgbT_max_abs=err_rgbT, depth_max_abs=err_depth, depth_tol=depth_tol,
                     n_contrib_equal=nc_equal, num_pairs=num_pairs, pair_capacity=cap,
-                    evaluations=evals),
+                    pairs_read=read, evaluations=evals, hits=hits, terminated_pixels=killed,
+                    cell_cull_evaluations=culled_evals),
         ms=ms,
         event_ms=event_ms,
         plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        dense_bound_ms=dense_bound_ms,
         library_ms=None,
         library_note="none: no single PyTorch call computes the tile blend",
     )
@@ -297,7 +379,8 @@ def phase_kernel_parity(torch, model, cam, raster):
 
 
 def kernel_bound(bytes_, instr):
-    """(bound ms, what bounds it) from bytes moved and FP32 instructions."""
+    """(bound ms, what bounds it, bytes ms, operations ms) from bytes moved
+    and FP32 instructions."""
     bytes_ms, ops_ms = bytes_ / HBM_BYTES_PER_S * 1e3, instr / FP32_INSTR_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
         bytes_ms, ops_ms
@@ -305,9 +388,9 @@ def kernel_bound(bytes_, instr):
 
 def backward_work(torch, records, tile_start, tile_count, n_contrib, TW, TH, ts, chunk=32):
     """(walked pairs, evaluations, hits) of the blend backward on this data:
-    each tile walks its pairs below its largest n_contrib; each pixel
-    evaluates the alpha of the pairs below its own n_contrib, and a hit is
-    one whose alpha is > 0 there (a pair it blended)."""
+    each tile walks its pairs below its largest n_contrib; a dense walk
+    evaluates at each pixel the alpha of the pairs below its own n_contrib,
+    and a hit is one whose alpha is > 0 there (a pair it blended)."""
     from binocular3dgs_torch.ops.blend_cuda import _splat, _tile_pixel_coords
 
     px, py = _tile_pixel_coords(TW, TH, ts, records.device)
@@ -322,7 +405,7 @@ def backward_work(torch, records, tile_start, tile_count, n_contrib, TW, TH, ts,
     return int(n_walk.sum()), int(nc.sum()), hits
 
 
-def phase_backward_parity(torch, fwd, seed):
+def phase_backward_parity(torch, fwd, seed, tag="[7 backward]"):
     from binocular3dgs_torch.ops.blend_cuda import blend_backward, blend_backward_torch
 
     records, start, count, TW, TH, ts = fwd["args"]
@@ -343,7 +426,7 @@ def phase_backward_parity(torch, fwd, seed):
         check(err <= 1e-3 * scale, f"blend backward row {name} differs by {err} "
                                    f"(tol 1e-3 x {scale})")
     check(not got[10:].any(), "blend backward wrote rows past the 10 live ones")
-    log("[7 backward] max|diff| / max|row| per row: " + ", ".join(
+    log(f"{tag} max|diff| / max|row| per row: " + ", ".join(
         f"{k} {v['max_abs']:.3e}/{v['max_row']:.3e}" for k, v in rows.items()) + " (tol 1e-3)")
 
     ms, event_ms = kernel_times(torch, lambda: blend_backward(*args), "blend_backward_kernel")
@@ -351,12 +434,16 @@ def phase_backward_parity(torch, fwd, seed):
     walked, evals, hits = backward_work(torch, records, start, count, nc, TW, TH, ts)
     T = TW * TH
     bytes_ = BWD_BYTES_PER_PAIR * walked + BWD_BYTES_PER_PIXEL * T * ts * ts + 8 * T
-    instr = BWD_INSTR_PER_EVAL * evals + BWD_INSTR_PER_HIT * hits
-    bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound(bytes_, instr)
-    log(f"[7 backward] kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events), plain "
-        f"{plain_ms:.3f} ms; bound: {walked} walked "
-        f"pairs, {bytes_} B -> {bytes_ms:.4f} ms; {evals} evaluations x {BWD_INSTR_PER_EVAL} + "
-        f"{hits} hits x {BWD_INSTR_PER_HIT} FP32 instructions -> {ops_ms:.4f} ms")
+    bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound(
+        bytes_, (BWD_INSTR_PER_EVAL + BWD_INSTR_PER_HIT) * hits)
+    dense_bound_ms = kernel_bound(
+        bytes_, BWD_INSTR_PER_EVAL * evals + BWD_INSTR_PER_HIT * hits)[0]
+    log(f"{tag} kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events), plain "
+        f"{plain_ms:.3f} ms; bound: {walked} walked pairs, {bytes_} B -> {bytes_ms:.4f} ms; "
+        f"{hits} hits x {BWD_INSTR_PER_EVAL + BWD_INSTR_PER_HIT} FP32 instructions -> "
+        f"{ops_ms:.4f} ms; dense bound ({evals} evaluations x {BWD_INSTR_PER_EVAL} more) "
+        f"{dense_bound_ms:.4f} ms")
+    check(ms >= bound_ms, f"blend_backward reads {ms} ms, below its bound {bound_ms} ms")
     return dict(
         name="blend_backward",
         route="cuda",
@@ -371,6 +458,7 @@ def phase_backward_parity(torch, fwd, seed):
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
+        dense_bound_ms=dense_bound_ms,
         library_ms=None,
         library_note="none: no single PyTorch call computes the blend backward",
     )
@@ -877,9 +965,15 @@ def main():
         f"{PAIRS_PER_GAUSSIAN}, seed {args.seed}")
 
     b1, fwd = phase_kernel_parity(torch, model, cam, raster)
+    od_params, _, _ = make_workload(args.seed, scales=OVERDRAW_SCALES, opacity=OVERDRAW_OPACITY)
+    od_model = from_numpy(od_params, active, max_sh_degree=1, active_sh_degree=1, device=device)
+    b1["overdraw"], fwd_od = phase_kernel_parity(torch, od_model, cam, raster,
+                                                 tag="[4 overdraw]", grow=True)
     with torch.no_grad():  # serving
         main_path, view0 = phase_main_path(torch, model, device, raster)
     b2 = phase_backward_parity(torch, fwd, args.seed)
+    b2["overdraw"] = phase_backward_parity(torch, fwd_od, args.seed, tag="[7 overdraw]")
+    del fwd_od, od_model
     w1, w2 = phase_warp_parity(torch, view0, args.seed)
     train = phase_train(torch, device, args.seed)
     b1["launches_serving"] = main_path["launches"]

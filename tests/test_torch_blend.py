@@ -1,7 +1,8 @@
 """The port's plain blend (blend_forward_torch) against the Pallas kernel
 blend_forward_pallas in interpret mode, on the same (16, P) records and tile
-ranges; and the wrapper's CPU path, input checks and backward on empty tiles. The
-CUDA kernel itself is held against the plain version in test_torch_cuda.py
+ranges; the wrapper's CPU path, input checks and backward on empty tiles; and
+the plain mirror of the kernels' cull box (`_alpha_extent`) against the one
+alpha expression `_splat`. The CUDA kernel itself is held against the plain version in test_torch_cuda.py
 (on a card) and in chip_smoke.py."""
 
 import jax.numpy as jnp
@@ -13,7 +14,15 @@ from binocular3dgs_tpu.ops.binning import bin_gaussians, tile_grid
 from binocular3dgs_tpu.ops.blend_pallas import blend_forward_pallas
 from binocular3dgs_tpu.ops.rasterize import _build_fields, project_for_render
 from binocular3dgs_torch.ops import blend_cuda
-from binocular3dgs_torch.ops.blend_cuda import blend_forward, blend_forward_torch
+from binocular3dgs_torch.ops.blend_cuda import (
+    ALPHA_MIN,
+    _alpha_extent,
+    _cell_mask,
+    _pixel_cell,
+    _splat,
+    blend_forward,
+    blend_forward_torch,
+)
 
 from test_rasterize_tiled import random_scene
 from test_render_dense import make_model
@@ -145,3 +154,172 @@ def test_wrapper_rejects_bad_inputs_and_backward():
     np.testing.assert_array_equal(out5[4].detach().numpy(), 1.0)  # empty tiles: T = 1
     out5.sum().backward()  # the backward runs (no pairs: zero cotangents)
     assert rec.grad.shape == rec.shape and not rec.grad.any()
+
+
+def random_splats(seed, n=48):
+    """(10, n) float32 records of rotated, elongated splats whose means lie
+    anywhere on a 1008x756 image, with opacities at, around and far above the
+    1/255 cut; a third of them nearly degenerate (thin and rotated, conic
+    condition a*c/det up to ~2e4)."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, np.pi, n)
+    s1 = np.exp(rng.uniform(np.log(0.3), np.log(40.0), n))
+    s2 = np.exp(rng.uniform(np.log(0.3), np.log(40.0), n))
+    thin = rng.random(n) < 1 / 3
+    s1 = np.where(thin, rng.uniform(20.0, 60.0, n), s1)
+    s2 = np.where(thin, rng.uniform(0.2, 0.6, n), s2)
+    cs, sn = np.cos(theta), np.sin(theta)
+    ca = cs * cs * s1**2 + sn * sn * s2**2  # covariance, then its inverse
+    cb = cs * sn * (s1**2 - s2**2)
+    cc = sn * sn * s1**2 + cs * cs * s2**2
+    det = ca * cc - cb * cb
+    op = rng.choice([1 / 255, np.nextafter(np.float32(1 / 255), 0), 1.02 / 255, 0.05, 0.5, 0.99,
+                     1.0], n)
+    rec = np.zeros((10, n), np.float32)
+    rec[0] = rng.uniform(0, 1008, n)
+    rec[1] = rng.uniform(0, 756, n)
+    rec[2], rec[3], rec[4] = cc / det, -cb / det, ca / det
+    rec[5] = op
+    return torch.from_numpy(rec)
+
+
+def _pixels_that_blend(rec):
+    """For each splat of `rec (10, n)`: (dx, dy) of every integer pixel
+    around its mean, out to 1.5x its exact float64 alpha extents plus 3, at
+    which `_splat`'s alpha is > 0."""
+    out = []
+    a, b, c, op = (rec[i].double() for i in (2, 3, 4, 5))
+    k = 2 * torch.log(torch.clamp(255 * op, min=1.0))
+    det = a * c - b * b
+    for i in range(rec.shape[1]):
+        hx = int(1.5 * float(torch.sqrt(k[i] * c[i] / det[i]))) + 3
+        hy = int(1.5 * float(torch.sqrt(k[i] * a[i] / det[i]))) + 3
+        mx, my = float(rec[0, i]), float(rec[1, i])
+        xs = torch.arange(int(mx) - hx, int(mx) + hx + 1, dtype=torch.float32)
+        ys = torch.arange(int(my) - hy, int(my) + hy + 1, dtype=torch.float32)
+        py, px = torch.meshgrid(ys, xs, indexing="ij")
+        alpha = _splat(rec[:, i, None, None], px.reshape(1, -1), py.reshape(1, -1))[3][0, :, 0]
+        hit = alpha > 0
+        out.append((px.reshape(-1)[hit] - mx, py.reshape(-1)[hit] - my))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_alpha_extent_contains_every_blending_pixel(seed):
+    """The cull box is conservative: every pixel where the one alpha
+    expression gives alpha > 0 lies inside the box, so a kernel that skips
+    a pair outside it changes no output bit."""
+    rec = random_splats(seed)
+    rx, ry = _alpha_extent(rec)
+    assert torch.isfinite(rx[rec[5] >= 0.05]).any()  # real boxes are tested, not only inf
+    n_hits = 0
+    for i, (dx, dy) in enumerate(_pixels_that_blend(rec)):
+        n_hits += dx.numel()
+        if float(rec[5, i]) < ALPHA_MIN:
+            assert dx.numel() == 0 and float(rx[i]) == -1.0
+        assert bool((dx.abs() <= rx[i]).all() and (dy.abs() <= ry[i]).all()), i
+    assert n_hits > 1000
+
+
+def test_alpha_extent_is_tight_enough_to_cull():
+    """The margins leave the box within 2 pixels plus 3% of the exact
+    ellipse's extents for a well-conditioned conic."""
+    rec = torch.zeros(10, 3)
+    rec[2], rec[4], rec[5] = 1 / 25.0, 1 / 4.0, torch.tensor([0.5, 0.99, 1 / 255 * 2])
+    rx, ry = _alpha_extent(rec)
+    k = 2 * np.log(255 * rec[5].double().numpy())
+    np.testing.assert_array_less(rx.numpy(), np.sqrt(k * 25.0) * 1.03 + 2)
+    np.testing.assert_array_less(ry.numpy(), np.sqrt(k * 4.0) * 1.03 + 2)
+    np.testing.assert_array_less(np.sqrt(k * 25.0), rx.numpy())
+
+
+@pytest.mark.parametrize("conic,op,want", [
+    ((1.0, 1.0, 1.0), 0.5, "inf"),  # det = 0: a line, no bound
+    ((1.0, 0.99999, 1.0), 0.5, "inf"),  # det < 1e-4 a*c: treated as unbounded
+    ((-1.0, 0.0, 1.0), 0.5, "inf"),  # not positive definite
+    ((float("nan"), 0.0, 1.0), 0.5, "inf"),
+    ((1.0, 0.0, float("inf")), 0.5, "inf"),
+    ((1.0, 0.0, 1.0), 0.001, "never"),  # opacity below 1/255
+    ((1.0, 0.0, 1.0), float("nan"), "nan"),  # splat_eval blends a NaN opacity
+    # a NaN power gives alpha 0.99 in splat_eval (fminf) whatever the opacity
+    ((float("nan"), 0.0, 1.0), 0.001, "inf"),
+    ((1.0, float("-inf"), 1.0), 0.001, "inf"),
+])
+def test_alpha_extent_edge_cases(conic, op, want):
+    rec = torch.zeros(10, 1)
+    rec[2:5, 0] = torch.tensor(conic)
+    rec[5, 0] = op
+    _assert_extent(rec, want)
+
+
+def _assert_extent(rec, want):
+    rx, ry = _alpha_extent(rec)
+    for r in (float(rx[0]), float(ry[0])):
+        if want == "inf":
+            assert r == float("inf")
+        elif want == "never":
+            assert r == -1.0
+        else:
+            assert np.isnan(r)
+
+
+@pytest.mark.parametrize("mean", [(float("nan"), 5.0), (5.0, float("nan")), (float("inf"), 5.0),
+                                  (5.0, float("-inf"))])
+@pytest.mark.parametrize("op", [0.5, 0.001])
+def test_alpha_extent_culls_nothing_for_a_mean_not_finite(mean, op):
+    """A mean that is not finite makes the power NaN at every pixel, which
+    splat_eval blends at alpha 0.99 whatever the opacity: nothing is culled,
+    in any cell."""
+    rec = torch.zeros(10, 1)
+    rec[0, 0], rec[1, 0] = mean
+    rec[2, 0], rec[4, 0], rec[5, 0] = 1.0, 1.0, op
+    _assert_extent(rec, "inf")
+    assert _cell_mask(rec, torch.tensor(0.0), torch.tensor(0.0)).all()
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_cell_cull_keeps_every_blending_pixel(scene):
+    """The kernels' per-cell cull (csrc/blend_common.cuh:cell_mask) on real
+    binned records (through its plain mirror `_cell_mask`): a tile is 8
+    cells of 8x4 pixels, and a pair is evaluated in the cells that its box
+    meets. Every (pair, pixel) with alpha > 0 must fall in such a cell."""
+    records, ts_j, tc_j, TW, TH = jax_records(SCENES[scene]())
+    rec = torch.from_numpy(np.array(records))
+    start, count = np.asarray(ts_j), np.asarray(tc_j)
+    s = torch.arange(TS * TS)
+    cell = _pixel_cell(s)
+    checked = 0
+    for t in range(TW * TH):
+        idx = torch.arange(int(start[t]), int(start[t]) + int(count[t]))
+        if idx.numel() == 0:
+            continue
+        x0, y0 = (t % TW) * TS, (t // TW) * TS
+        px, py = (x0 + s % TS).float()[None], (y0 + s // TS).float()[None]
+        alpha = _splat(rec[:, None, idx], px, py)[3][0]  # (S, pairs)
+        mask = _cell_mask(rec[:, idx], torch.tensor(float(x0)), torch.tensor(float(y0)))
+        evaluated = mask[cell]  # (S, pairs)
+        assert not bool(((alpha > 0) & ~evaluated).any()), t
+        checked += int((alpha > 0).sum())
+    assert checked > 0
+
+
+def test_cell_layout_and_mask_edges():
+    """The cell of each pixel is the 8x4 block the kernels give it (cell c
+    at x = 8 (c // 4), y = 4 (c % 4)); `_cell_mask` clears a cell only
+    where the box misses it, and an unbounded conic leaves every cell set."""
+    s = torch.arange(TS * TS)
+    cell = _pixel_cell(s)
+    assert torch.bincount(cell).tolist() == [32] * 8
+    x, y = s % TS, s // TS
+    assert torch.equal(x // 8, cell // 4) and torch.equal(y // 4, cell % 4)
+
+    rec = torch.zeros(10, 3)
+    rec[2], rec[4], rec[5] = 1.0, 1.0, 0.5  # a unit conic: box half-width ~4.2 pixels
+    rec[0], rec[1] = 3.0, 2.0  # inside cell 0 (x 0-7, y 0-3)
+    rec[0, 1], rec[1, 1] = 40.0, 40.0  # far off the tile
+    rec[0, 2], rec[1, 2], rec[3, 2] = 40.0, 40.0, 1.0  # det = 0: cull nothing
+    mask = _cell_mask(rec, torch.tensor(0.0), torch.tensor(0.0))
+    assert mask.shape == (8, 3)
+    # cell 1 (y 4-7) lies 2 pixels from the mean, cells 4+ (x >= 8) 5 pixels
+    assert torch.nonzero(mask[:, 0]).flatten().tolist() == [0, 1]
+    assert not mask[:, 1].any() and mask[:, 2].all()

@@ -40,7 +40,11 @@ def cuda_device():
     return resolve_device("cuda")
 
 
-def scene(seed, n, w, h, device, opacity=(0.2, 0.95), depth=(3.0, 9.0)):
+def scene(seed, n, w, h, device, opacity=(0.2, 0.95), depth=(3.0, 9.0), elongated=False):
+    """A random scene; `elongated` draws needles (one axis 0.3-0.8, two
+    0.005-0.02, random rotations), thin rotated ellipses on screen whose
+    alpha box is far smaller than their binning box, for the kernels'
+    per-warp culling."""
     rng = np.random.default_rng(seed)
     xyz = np.stack([rng.uniform(-1.2, 1.2, n), rng.uniform(-0.9, 0.9, n),
                     rng.uniform(*depth, n)], axis=1)
@@ -53,6 +57,9 @@ def scene(seed, n, w, h, device, opacity=(0.2, 0.95), depth=(3.0, 9.0)):
         scaling=np.log(rng.uniform(0.05, 0.4, (n, 3))),
         rotation=q / np.linalg.norm(q, axis=1, keepdims=True),
     )
+    if elongated:
+        params["scaling"] = np.log(np.concatenate([rng.uniform(0.3, 0.8, (n, 1)),
+                                                   rng.uniform(0.005, 0.02, (n, 2))], 1))
     model = from_numpy(params, np.ones(n, bool), 1, 1, device=device)
     cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, w, h, device=device)
     return model, cam
@@ -67,14 +74,18 @@ def records_for(model, cam, ppg=16):
     return records, b.tile_start, b.tile_count, TW, TH
 
 
+SCENES = [
+    (0, 64, 64, 48, (0.2, 0.95), False),
+    (1, 400, 200, 150, (0.9, 0.99), False),  # heavy overdraw: the termination path
+    (2, 300, 50, 38, (0.2, 0.95), False),  # size not a multiple of the tile
+    (5, 400, 200, 150, (0.5, 0.99), True),  # needles: culling against thin boxes
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,n,w,h,opacity", [
-    (0, 64, 64, 48, (0.2, 0.95)),
-    (1, 400, 200, 150, (0.9, 0.99)),  # heavy overdraw: the termination path
-    (2, 300, 50, 38, (0.2, 0.95)),  # size not a multiple of the tile
-])
-def test_kernel_matches_plain(cuda_device, seed, n, w, h, opacity):
-    model, cam = scene(seed, n, w, h, cuda_device, opacity)
+@pytest.mark.parametrize("seed,n,w,h,opacity,elongated", SCENES)
+def test_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elongated):
+    model, cam = scene(seed, n, w, h, cuda_device, opacity, elongated=elongated)
     records, start, count, TW, TH = records_for(model, cam)
     before = blend_cuda.blend_forward_launches
     out5, nc = blend_forward(records, start, count, TW, TH, TS)
@@ -100,17 +111,10 @@ def test_render_counts_one_launch(cuda_device):
     assert out.image.shape == (3, 48, 64) and torch.isfinite(out.image).all()
 
 
-SCENES = [
-    (0, 64, 64, 48, (0.2, 0.95)),
-    (1, 400, 200, 150, (0.9, 0.99)),  # heavy overdraw: the termination path
-    (2, 300, 50, 38, (0.2, 0.95)),  # size not a multiple of the tile
-]
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,n,w,h,opacity", SCENES)
-def test_backward_kernel_matches_plain(cuda_device, seed, n, w, h, opacity):
-    model, cam = scene(seed, n, w, h, cuda_device, opacity)
+@pytest.mark.parametrize("seed,n,w,h,opacity,elongated", SCENES)
+def test_backward_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elongated):
+    model, cam = scene(seed, n, w, h, cuda_device, opacity, elongated=elongated)
     records, start, count, TW, TH = records_for(model, cam)
     out5, nc = blend_forward_torch(records, start, count, TW, TH, TS)
     g = torch.Generator().manual_seed(seed)
@@ -120,7 +124,7 @@ def test_backward_kernel_matches_plain(cuda_device, seed, n, w, h, opacity):
     torch.cuda.synchronize()
     assert blend_cuda.blend_backward_launches == before + 1
     want = blend_backward_torch(records, start, count, out5, nc, d_out5, TW, TH, TS)
-    # transmittance rebuilt by one division per pair here, by chunk suffix
+    # transmittance rebuilt by one reciprocal per pair here, by chunk suffix
     # products there, and the pixel sums in another order: each of the ten
     # rows within 1e-3 of its largest entry
     for row in range(10):
