@@ -13,8 +13,9 @@ constant), as with the reference's detached integer indices.
 `warp_backward` gives `d_image`; `d_disp = sum_c diff * d_out * valid` is
 computed here. For CPU tensors each wrapper runs its plain PyTorch version
 (`warp_forward_torch`, the two-gather form of the JAX `_warp_xla`, and
-`warp_backward_torch`, an `index_add_` along each flattened row); on a CUDA
-tensor it launches its kernel or raises. Images are channels-first
+`warp_backward_torch`, the kernel's per-row int64 fixed-point sum by
+`index_add_`, equal to it bit for bit); on a CUDA tensor it launches its
+kernel or raises. Images are channels-first
 (C, H, W), disparities (H, W), float32.
 """
 
@@ -68,18 +69,55 @@ def warp_forward_torch(image: torch.Tensor, disparity: torch.Tensor):
     return out, diff
 
 
+def _pow2(n: torch.Tensor) -> torch.Tensor:
+    """2^n as float64, exact for int64 n in [-1022, 1023]."""
+    return ((n + 1023) << 52).view(torch.float64)
+
+
+def _fixed_to_float(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """float32 of the int64 sums `v` times 2^-s, correctly rounded: |v|
+    rounded to odd at 52-53 bits is exact in float64, the scale too, so the
+    one rounding to float32 is correct (subnormals included)."""
+    a = v.abs()
+    k = (torch.frexp(a.double()).exponent.long() - 53).clamp_(min=0)
+    t = (a >> k) | ((a & ((torch.ones_like(a) << k) - 1)) != 0).long()
+    mag = t.double() * _pow2(k - s)
+    return torch.where(v < 0, -mag, mag).float()
+
+
 @torch.no_grad()
 def warp_backward_torch(disparity: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
     """Plain W2: d_image (C, H, W), the transpose of the warp applied to
-    `d_out`, by two `index_add_` along the flattened rows."""
+    `d_out`, summed per row in int64 fixed point as the kernel does
+    (csrc/warp.cu, W2 steps 2-4), so the two agree bit for bit and neither
+    depends on the order of the additions. Row scale 2^s with
+    s = 62 - e - ceil(log2 W), e from frexp of max |d_out| over the row's
+    valid pixels (finite values); each float32 term w * d_out becomes
+    round_half_even(t * 2^s), `index_add_` sums them in int64, and each
+    column converts back once. Non-finite terms stay out of the sums and
+    make their column what a float sum would: +inf, -inf or NaN."""
     C, H, W = d_out.shape
     c0, c1, w0, w1, valid = _taps(disparity, W)
-    w0 = torch.where(valid, w0, 0.0)[None]
-    w1 = torch.where(valid, w1, 0.0)[None]
-    d_img = torch.zeros(C, H * W, dtype=d_out.dtype, device=d_out.device)
-    d_img.index_add_(1, _row_index(c0, H, W), (w0 * d_out).reshape(C, -1))
-    d_img.index_add_(1, _row_index(c1, H, W), (w1 * d_out).reshape(C, -1))
-    return d_img.reshape(C, H, W)
+    terms = torch.where(valid, torch.stack([w0 * d_out, w1 * d_out]), 0.0)  # (2, C, H, W)
+    finite = torch.isfinite(terms)
+    row_max = torch.where(valid & torch.isfinite(d_out), d_out.abs(), 0.0).amax(dim=(0, 2))
+    s = 62 - torch.frexp(row_max).exponent.long() - (W - 1).bit_length()  # (H,)
+    q = torch.round(torch.where(finite, terms, 0.0).double() * _pow2(s)[:, None]).long()
+    idx = (_row_index(c0, H, W), _row_index(c1, H, W))
+    acc = torch.zeros(C, H * W, dtype=torch.int64, device=d_out.device)
+    for tap in range(2):
+        acc.index_add_(1, idx[tap], q[tap].reshape(C, -1))
+    d_img = _fixed_to_float(acc.reshape(C, H, W), s[:, None])
+    if bool(finite.all()):
+        return d_img
+    # per column: any +inf or NaN term, any -inf or NaN term
+    pos, neg = (((terms > 0) | terms.isnan()) & ~finite), (((terms < 0) | terms.isnan()) & ~finite)
+    hit = torch.zeros(2, C, H * W, dtype=torch.int64, device=d_out.device)
+    for tap in range(2):
+        hit.index_add_(2, idx[tap], torch.stack([pos[tap], neg[tap]]).reshape(2, C, -1).long())
+    pos, neg = (hit > 0).reshape(2, C, H, W)
+    d_img = torch.where(pos, torch.inf, torch.where(neg, -torch.inf, d_img))
+    return torch.where(pos & neg, torch.nan, d_img)
 
 
 def _check(name, *tensors):

@@ -30,7 +30,9 @@ fails (non-zero exit) if any phase fails:
      at both of phase 4's shapes
   8. warp kernel parity at full width: the warp forward and backward kernels
      against their plain versions on phase 5's view-0 render and its
-     disparity; times and bounds
+     disparity, for the shift 0.2 and for -0.4 (the opposite sign at the
+     trainer's widest shift); the backward kernel bit for bit, and two of
+     its launches bit for bit; times and bounds
   9. training main path: the bench.py workload through
      `make_train_step(binocular=True)`, 3 warm-up and 10 timed steps with the
      launch counters read around exactly the timed ones (2 blend forward, 2
@@ -464,33 +466,47 @@ def phase_backward_parity(torch, fwd, seed, tag="[7 backward]"):
     )
 
 
-def phase_warp_parity(torch, view0, seed):
+def phase_warp_parity(torch, view0, seed, trans=0.2, tag="[8 warp]"):
+    """W1 and W2 against their plain versions on phase 5's view-0 render
+    and the disparity of a binocular shift `trans` (disparity =
+    focal_x * -trans / depth); W2 must equal its plain version bit for bit
+    and repeat itself bit for bit. Times and bounds of both."""
     from binocular3dgs_torch.ops import warp
 
     image, depth, cam = view0
-    disparity = cam.focal_x * (-0.2) / (depth + 1e-5)
+    disparity = cam.focal_x * (-trans) / (depth + 1e-5)
     rng = np.random.default_rng(seed + 8)
     d_out = torch.from_numpy(rng.normal(size=tuple(image.shape)).astype(np.float32)).to(
         image.device)
     out, diff = warp.warp_forward(image, disparity)
     d_img = warp.warp_backward(disparity, d_out)
+    d_img_again = warp.warp_backward(disparity, d_out)
     torch.cuda.synchronize()
     want_out, want_diff = warp.warp_forward_torch(image, disparity)
     want_d_img = warp.warp_backward_torch(disparity, d_out)
     err_out = (out - want_out).abs().max().item()
     err_diff = (diff - want_diff).abs().max().item()
     err_d_img = (d_img - want_d_img).abs().max().item()
-    d_img_tol = 1e-5 * want_d_img.abs().max().item()
-    valid = warp.warp_mask(disparity, cam.height, cam.width).mean().item()
-    log(f"[8 warp] disparity {disparity.min().item():.2f}..{disparity.max().item():.2f} px, "
-        f"valid share {valid:.4f}; W1 max|diff| out {err_out:.3e} diff {err_diff:.3e} "
-        f"(tol 1e-6); W2 d_image {err_d_img:.3e} (tol {d_img_tol:.3e}: shared-memory atomics "
-        f"add each column's taps in a varying order)")
+    d_img_equal = torch.equal(d_img.view(torch.int32), want_d_img.view(torch.int32))
+    d_img_repeats = torch.equal(d_img.view(torch.int32), d_img_again.view(torch.int32))
+    valid = warp.warp_mask(disparity, cam.height, cam.width).bool()
+    valid_share = valid.float().mean().item()
+    d_lo, d_hi = disparity.min().item(), disparity.max().item()
+    v_lo, v_hi = disparity[valid].min().item(), disparity[valid].max().item()
+    log(f"{tag} shift {trans}: disparity {d_lo:.2f}..{d_hi:.2f} px ({v_lo:.2f}..{v_hi:.2f} on "
+        f"valid pixels), valid share {valid_share:.4f}; W1 max|diff| out {err_out:.3e} diff "
+        f"{err_diff:.3e} (tol 1e-6); W2 d_image bit-equal to the plain version {d_img_equal} "
+        f"(max|diff| {err_d_img:.3e}), two launches bit-equal {d_img_repeats}")
     check(err_out <= 1e-6 and err_diff <= 1e-6, f"warp forward differs by {err_out}, {err_diff}")
-    check(err_d_img <= d_img_tol, f"warp backward differs by {err_d_img}")
-    check(0.05 < valid, "the warp's disparity leaves almost no valid pixel")
+    check(d_img_equal, f"warp backward is not bit-equal to its plain version ({err_d_img})")
+    check(d_img_repeats, "two launches of warp backward differ")
+    check(0.05 < valid_share, "the warp's disparity leaves almost no valid pixel")
 
     pixels = cam.height * cam.width
+    parity = dict(out_max_abs=err_out, diff_max_abs=err_diff, d_image_max_abs=err_d_img,
+                  d_image_bit_equal=d_img_equal, d_image_repeats=d_img_repeats, shift=trans,
+                  valid_share=valid_share, disparity_range=[d_lo, d_hi],
+                  valid_disparity_range=[v_lo, v_hi])
     res = []
     for name, fn, plain, bpp, tpu_line, err in (
         ("warp_forward", lambda: warp.warp_forward(image, disparity),
@@ -503,14 +519,13 @@ def phase_warp_parity(torch, view0, seed):
         ms, event_ms = kernel_times(torch, fn, f"{name}_kernel")
         plain_ms = median_ms(torch, plain)
         bound_ms, bound_by, _, _ = kernel_bound(bpp * pixels, 0)
-        log(f"[8 warp] {name} kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events "
+        log(f"{tag} {name} kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events "
             f"around the wrapper), plain {plain_ms:.4f} ms; bound {bpp * pixels} B -> "
             f"{bound_ms:.4f} ms")
+        check(ms >= bound_ms, f"{name} reads {ms} ms, below its bound {bound_ms} ms")
         res.append(dict(
             name=name, route="cuda", source="binocular3dgs_torch/csrc/warp.cu",
-            replaces=tpu_line, launches=None, max_abs_err=err,
-            parity=dict(out_max_abs=err_out, diff_max_abs=err_diff, d_image_max_abs=err_d_img,
-                        d_image_tol=d_img_tol, valid_share=valid),
+            replaces=tpu_line, launches=None, max_abs_err=err, parity=parity,
             ms=ms, event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, library_note=WARP_NO_LIBRARY,
         ))
@@ -953,7 +968,7 @@ def main():
     device, smi = phase_environment(torch)
     phase_build()
 
-    from binocular3dgs_torch.config import RasterConfig
+    from binocular3dgs_torch.config import Config, RasterConfig
     from binocular3dgs_torch.core.camera import make_camera
     from binocular3dgs_torch.models.gaussians import from_numpy
 
@@ -975,6 +990,9 @@ def main():
     b2["overdraw"] = phase_backward_parity(torch, fwd_od, args.seed, tag="[7 overdraw]")
     del fwd_od, od_model
     w1, w2 = phase_warp_parity(torch, view0, args.seed)
+    # the opposite sign at the trainer's widest shift
+    w1["opposite_shift"], w2["opposite_shift"] = phase_warp_parity(
+        torch, view0, args.seed, trans=-Config().train.cam_trans_dist, tag="[8 warp opposite]")
     train = phase_train(torch, device, args.seed)
     b1["launches_serving"] = main_path["launches"]
     for k in (b1, b2, w1, w2):

@@ -150,9 +150,68 @@ def test_warp_kernels_match_plain(cuda_device, spread):
     # the same two float32 products (no FMA contraction on either side)
     assert (out - want_out).abs().max().item() <= 1e-6
     assert (diff - want_diff).abs().max().item() <= 1e-6
-    want_d_img = warp.warp_backward_torch(disp, d_out)
-    # shared-memory atomics add each column's few taps in a varying order
-    assert (d_img - want_d_img).abs().max().item() <= 1e-5 * want_d_img.abs().max().item()
+    # the same fixed-point sum on both sides: equal bit for bit
+    assert torch.equal(bits(d_img), bits(warp.warp_backward_torch(disp, d_out)))
+
+
+def bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,H,W,spread", [
+    (1, 20, 64, 4.0),  # one channel
+    (3, 8, 2500, 40.0),  # 90 KB of shared memory, past the 48 KB default
+    (3, 13, 37, 6.0),  # W odd: the scalar path
+    (2, 5, 1, 1.0),  # W = 1: no valid pixel
+])
+def test_warp_backward_shapes_bit_equal(cuda_device, C, H, W, spread):
+    g = torch.Generator().manual_seed(W)
+    disp = ((torch.rand(H, W, generator=g) - 0.5) * spread).to(cuda_device)
+    d_out = torch.randn(C, H, W, generator=g).to(cuda_device)
+    d_img = warp.warp_backward(disp, d_out)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(d_img), bits(warp.warp_backward_torch(disp, d_out)))
+
+
+@pytest.mark.cuda
+def test_warp_backward_stress_rows_bit_equal(cuda_device):
+    """Rows that stress the scale and the non-finite rule: zero, huge among
+    small, subnormal results, s > 127, +inf, -inf, NaN, +inf meeting -inf,
+    0 * inf, and a non-finite value at an invalid pixel."""
+    g = torch.Generator().manual_seed(11)
+    H, W = 10, 40
+    disp = ((torch.rand(H, W, generator=g) - 0.5) * 6).to(cuda_device)
+    disp[:, 1:3] = 0.5
+    disp[:, 6] = 1.0
+    disp[:, 39] = 3.0  # invalid
+    d_out = torch.randn(3, H, W, generator=g)
+    d_out[:, 0] = 0.0
+    d_out[0, 1, 5] = 1e20
+    d_out[:, 2] *= 1e-42
+    d_out[:, 3] *= 1e-36
+    d_out[0, 4, 1] = float("inf")
+    d_out[1, 5, 1] = -float("inf")
+    d_out[2, 6, 1], d_out[2, 6, 2] = float("inf"), -float("inf")
+    d_out[0, 7, 1] = float("nan")
+    d_out[1, 8, 6] = float("inf")
+    d_out[:, 9, 39] = float("inf")
+    d_out = d_out.to(cuda_device)
+    d_img = warp.warp_backward(disp, d_out)
+    torch.cuda.synchronize()
+    want = warp.warp_backward_torch(disp, d_out)
+    assert torch.equal(bits(d_img), bits(want))
+    assert want.isnan().any() and want.isinf().any() and (want[:, 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_warp_backward_repeat_launches_identical(cuda_device):
+    g = torch.Generator().manual_seed(12)
+    disp = ((torch.rand(96, 160, generator=g) - 0.5) * 8).to(cuda_device)
+    d_out = torch.randn(3, 96, 160, generator=g).to(cuda_device)
+    first = warp.warp_backward(disp, d_out)
+    for _ in range(5):
+        assert torch.equal(bits(warp.warp_backward(disp, d_out)), bits(first))
 
 
 @pytest.mark.cuda
