@@ -6,10 +6,12 @@ each TPU Pallas kernel on a ported path is a hand-written CUDA kernel for
 `sm_90a` under `csrc/`, built with nvcc at first use (ops/cuda_build.py).
 
 Ported so far: the serving path — load a trained scene, render views
-(project -> bin -> gather -> blend -> planes) and score them (PSNR/SSIM) —
-and the training path: the binocular train step (two renders, the
-disparity warp, losses, autograd through the blend and warp kernels, masked
-Adam), densification and the trainer behind `cli train`.
+(project -> bin -> gather -> blend -> planes) and spiral paths, score them
+(PSNR/SSIM, LPIPS from supplied weights), the viewer protocol — and the
+training path: the binocular train step (two renders, the disparity warp,
+losses, autograd through the blend and warp kernels, masked Adam),
+densification and the trainer behind `cli train`, with checkpoints that
+interchange with the JAX package's and a profiler trace.
 """
 
 from __future__ import annotations

@@ -6,16 +6,18 @@ on the CPU):
 
   python -m binocular3dgs_torch.cli train     -s <scene> -m <model> [...]
   python -m binocular3dgs_torch.cli render    -m <model> [-s <scene>]
-  python -m binocular3dgs_torch.cli metrics   -m <model> [...]
+  python -m binocular3dgs_torch.cli spiral    -m <model> [--n_frames N] [...]
+  python -m binocular3dgs_torch.cli metrics   -m <model> [--lpips_weights <npz>]
   python -m binocular3dgs_torch.cli aggregate -m <model> [...]
 
-`train` writes `cfg_args.json`; `render` reads the model settings from that
-file alone, as the JAX CLI does (its `--eval`, `-r`, `-i`, `-w` and
-`--sh_degree` are accepted and ignored; `-m` and `-s` apply). `train` leaves
-out the TPU-only `--backend`, `--max_pairs_per_tile` and `--raster_chunk`;
-`--start_checkpoint`, `--checkpoint_iterations` and `--profile_dir` are not
-ported yet and are refused. `spiral`, `triangulate` and `run` are not ported
-yet: they print so and exit non-zero.
+`train` writes `cfg_args.json`, checkpoints at `--checkpoint_iterations`,
+resumes from `--start_checkpoint <path|latest>` (a checkpoint of either
+package) and traces its first iterations into `--profile_dir`; `render` and
+`spiral` read the model settings from that file alone, as the JAX CLI does
+(their `--eval`, `-r`, `-i`, `-w` and `--sh_degree` are accepted and
+ignored; `-m` and `-s` apply). `train` leaves out the TPU-only `--backend`,
+`--max_pairs_per_tile` and `--raster_chunk`. `triangulate` and `run` are
+not ported yet: they print so and exit non-zero.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -32,7 +35,7 @@ import torch
 from . import resolve_device
 from .config import Config, load_config, save_config
 
-NOT_PORTED = ("spiral", "triangulate", "run")
+NOT_PORTED = ("triangulate", "run")
 
 
 def _add_common_model_flags(p: argparse.ArgumentParser):
@@ -86,18 +89,13 @@ def cmd_train(argv):
     p.add_argument("--fused_steps", type=int, default=0,
                    help="accepted for the JAX CLI's sake; the port runs one step per iteration")
     p.add_argument("--debug", action="store_true",
-                   help="abort on a non-finite loss (reference --detect_anomaly)")
-    p.add_argument("--profile_dir", type=str, default=None)
+                   help="dump the state and abort on a non-finite loss "
+                        "(reference --detect_anomaly)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the first ~200 iterations here")
     p.add_argument("--quiet", "-q", action="store_true")
     _add_device_flag(p)
     args = p.parse_args(argv)
-    for flag, given in (("--start_checkpoint", args.start_checkpoint),
-                        ("--checkpoint_iterations", args.checkpoint_iterations),
-                        ("--profile_dir", args.profile_dir)):
-        if given:
-            print(f"{flag} is not yet ported to binocular3dgs_torch; "
-                  f"use python -m binocular3dgs_tpu.cli train")
-            return 2
 
     cfg = Config()
     m = cfg.model
@@ -115,15 +113,17 @@ def cmd_train(argv):
     for k in (
         "opacity_decay", "opacity_decay_factor", "cam_trans_dist", "binocular_consistency",
         "shift_cam_start", "dataset_name", "n_views", "suffix", "seed", "fused_steps",
+        "start_checkpoint",
     ):
         setattr(t, k, getattr(args, k))
     t.test_iterations = tuple(args.test_iterations)
     t.save_iterations = tuple(args.save_iterations) + (args.iterations,)
+    t.checkpoint_iterations = tuple(args.checkpoint_iterations)
     cfg.raster.pairs_per_gaussian = args.pairs_per_gaussian
     cfg.pipeline.debug = args.debug
 
     from .data.dataset import Scene
-    from .train.loop import Trainer
+    from .train.loop import Trainer, find_latest_checkpoint
 
     device = resolve_device(args.device)
     if m.model_path:
@@ -131,6 +131,15 @@ def cmd_train(argv):
         save_config(cfg, os.path.join(m.model_path, "cfg_args.json"))
     print(f"Optimizing {m.model_path}")
     trainer = Trainer(cfg, Scene.load(cfg, device=device), device=device)
+    first_iter = 0
+    ckpt_path = args.start_checkpoint
+    if ckpt_path == "latest":
+        ckpt_path = find_latest_checkpoint(m.model_path)
+        if ckpt_path is None:
+            print("No checkpoint found; starting fresh")
+    if ckpt_path:
+        first_iter = trainer.load_checkpoint(ckpt_path)
+        print(f"Resumed from {ckpt_path} at iteration {first_iter}")
 
     def progress(entry):
         if not args.quiet:
@@ -138,12 +147,30 @@ def cmd_train(argv):
                   f"disp {entry.disparity_loss:.6f} points {entry.points} "
                   f"({entry.iters_per_sec:.2f} it/s)", flush=True)
 
-    trainer.train(args.iterations, progress=progress)
+    if args.profile_dir:
+        n_prof = min(args.iterations, first_iter + 200)
+        with _profile(device) as prof:
+            trainer.train(n_prof, progress=progress, first_iteration=first_iter + 1)
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        first_iter = n_prof
+        print(f"profiler trace written to {args.profile_dir}")
+    trainer.train(args.iterations, progress=progress, first_iteration=first_iter + 1)
     if m.model_path and trainer.log:
         with open(os.path.join(m.model_path, "train_log.json"), "w") as f:
             json.dump([dataclasses.asdict(e) for e in trainer.log], f)
     print(f"\nTraining complete. {m.model_path}")
     return 0
+
+
+def _profile(device):
+    """torch.profiler over host work and, on the card, its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
 
 
 def _load_trained(args, device):
@@ -223,6 +250,59 @@ def cmd_render(argv):
     return 0
 
 
+def cmd_spiral(argv):
+    # reference spiral.py
+    p = argparse.ArgumentParser("spiral")
+    _add_common_model_flags(p)
+    p.add_argument("--iteration", type=int, default=-1)
+    p.add_argument("--n_frames", type=int, default=180)
+    p.add_argument("--near", type=float, default=0.0)
+    p.add_argument("--no_video", action="store_true")
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+
+    from .data.dataset import load_view
+    from .ops.rasterize import render_tiled
+    from .render.spiral import (
+        create_dtu_spiral, create_llff_spiral, depth_curve_fn, visualize_cmap,
+    )
+
+    device = resolve_device(args.device)
+    cfg, model, iteration = _load_trained(args, device)
+    source = cfg.model.source_path
+    scene_name = os.path.basename(os.path.normpath(source))
+    make_spiral = create_dtu_spiral if "scan" in source else create_llff_spiral
+    info = make_spiral(source, n_frames=args.n_frames)
+    views = [load_view(cfg, i, c, device=device) for i, c in enumerate(info.test_cameras)]
+    bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, device=device)
+
+    render_path = os.path.join(cfg.model.model_path, "spiral", f"ours_{iteration}")
+    for idx, v in enumerate(views):
+        with torch.no_grad():
+            out = render_tiled(v.camera, model, bg, raster=cfg.raster, device=device)
+        _save_png(out.image, os.path.join(render_path, f"{idx:05d}.png"))
+        depth = out.depth.cpu().numpy()
+        alpha = out.alpha.cpu().numpy()
+        # reference spiral.py:120-122: normalized inverted depth, alpha matted
+        dnorm = 1.0 - (depth - depth.min()) / (depth.max() - depth.min() + 1e-12)
+        dshow = 1.0 - dnorm * alpha
+        _save_png(np.repeat(dshow[..., None], 3, axis=-1),
+                  os.path.join(render_path, f"depth_{idx:05d}.png"))
+        cmapped = visualize_cmap(dshow, np.ones_like(dshow), curve_fn=depth_curve_fn)
+        _save_png(cmapped, os.path.join(render_path, f"cdepth_{idx:05d}.png"))
+    if not args.no_video:
+        for prefix, outname in (("", "out"), ("depth_", "out_depth"), ("cdepth_", "out_cdepth")):
+            try:
+                subprocess.run(
+                    ["ffmpeg", "-loglevel", "error", "-i", f"{render_path}/{prefix}%5d.png",
+                     "-q", "2", f"{cfg.model.model_path}/{outname}_{scene_name}.mp4", "-y"],
+                    check=True)
+            except FileNotFoundError:
+                print(f"ffmpeg not found: no video; the frames are in {render_path}")
+                return 1
+    return 0
+
+
 def cmd_metrics(argv):
     # reference metrics.py
     p = argparse.ArgumentParser("metrics")
@@ -236,14 +316,20 @@ def cmd_metrics(argv):
     from .eval.metrics import evaluate_dir
 
     device = resolve_device(args.device)
-    print("LPIPS is not ported — reporting LPIPS as null")
+    lpips_fn = None
+    if args.lpips_weights and os.path.exists(args.lpips_weights):
+        from .eval.lpips import load_lpips_weights, make_lpips
+
+        lpips_fn = make_lpips(load_lpips_weights(args.lpips_weights), device=device)
+    else:
+        print("LPIPS weights not provided — reporting LPIPS as null")
     failed = 0
     for scene_dir in args.model_paths:
         print("Scene:", scene_dir)
         try:
             res = evaluate_dir(
                 scene_dir, dataset_name=args.dataset_name,
-                idrmasks_path=args.idrmasks_path, device=device,
+                idrmasks_path=args.idrmasks_path, lpips_fn=lpips_fn, device=device,
             )
         except (OSError, ValueError) as e:  # one unreadable scene does not stop the rest
             print("Unable to compute metrics for model", scene_dir, f"({e})")
@@ -269,6 +355,7 @@ def cmd_aggregate(argv):
 COMMANDS = {
     "train": cmd_train,
     "render": cmd_render,
+    "spiral": cmd_spiral,
     "metrics": cmd_metrics,
     "aggregate": cmd_aggregate,
 }

@@ -3,8 +3,9 @@
 Counterpart of `binocular3dgs_tpu/eval/metrics.py` (reference
 `metrics.py:37-124`, `read_eval_result.py`): per-method directories of
 renders + gt, DTU idrmask compositing (render*m + (1-m)), masked PSNR,
-results.json / per_view.json, and cross-scene aggregation. LPIPS is not
-ported (its weights are not available offline) and is reported as null.
+results.json / per_view.json, and cross-scene aggregation. LPIPS is
+computed by `lpips_fn` when one is given (eval/lpips.py, from supplied
+weights) and reported as null otherwise.
 """
 
 from __future__ import annotations
@@ -54,11 +55,13 @@ def evaluate_dir(
     scene_dir: str,
     dataset_name: str = "LLFF",
     idrmasks_path: str | None = None,
+    lpips_fn=None,
     save_masked: bool = True,
     device: str | torch.device = "cuda",
 ) -> dict:
     """Evaluate every method under <scene_dir>/test/ (reference `evaluate`)
-    and write results.json and per_view.json beside it."""
+    and write results.json and per_view.json beside it. `lpips_fn(render,
+    gt)` takes (H, W, 3) tensors on `device`."""
     device = resolve_device(device)
     full = {}
     per_view = {}
@@ -75,7 +78,7 @@ def evaluate_dir(
         if not renders_dir.is_dir():
             continue
         names = sorted(os.listdir(renders_dir))
-        ssims, psnrs = [], []
+        ssims, psnrs, lpipss = [], [], []
         for idx, name in enumerate(names):
             render = _load_image(renders_dir / name)
             gt = _load_image(gt_dir / name)
@@ -97,15 +100,18 @@ def evaluate_dir(
             m = planar(mask) if mask is not None else None
             ssims.append(float(ssim(r, g)))
             psnrs.append(float(psnr(r, g, mask=m)))
+            if lpips_fn is not None:
+                lpipss.append(float(lpips_fn(torch.as_tensor(render, device=device),
+                                             torch.as_tensor(gt, device=device))))
         full[method] = {
             "SSIM": float(np.mean(ssims)) if ssims else None,
             "PSNR": float(np.mean(psnrs)) if psnrs else None,
-            "LPIPS": None,
+            "LPIPS": float(np.mean(lpipss)) if lpipss else None,
         }
         per_view[method] = {
             "SSIM": dict(zip(names, ssims)),
             "PSNR": dict(zip(names, psnrs)),
-            "LPIPS": {},
+            "LPIPS": dict(zip(names, lpipss)) if lpipss else {},
         }
 
     with open(os.path.join(scene_dir, "results.json"), "w") as f:

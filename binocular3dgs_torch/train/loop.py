@@ -6,14 +6,19 @@ SH degree bump every 1000 iterations, the binocular branch after
 `shift_cam_start`, densification every `densification_interval` after
 `densify_from_iter`, gaussian-capacity growth (next power of two) and
 pair-capacity growth, PSNR/L1 report at `test_iterations` and PLY snapshots
-at `save_iterations`.
+at `save_iterations`, npz checkpoints at `checkpoint_iterations`.
 
 It runs one step per iteration: the JAX trainer's fused spans
 (`TrainConfig.fused_steps`, `_fused_span`) amortize JAX dispatch and are not
 carried over; the config key is read and ignored. The binocular shift and
 the split noise come from one `torch.Generator` on the CPU seeded with
 `cfg.train.seed`, so a run draws the same numbers on any device.
-Checkpoints (npz save and resume) are not ported yet.
+
+Checkpoints (`save_checkpoint`, `load_checkpoint`) use the JAX package's
+npz layout key for key, dtype for dtype, padded rows included, so a
+checkpoint written by either package resumes in the other. As in the JAX
+package, a resumed trainer restarts its view RNG and its generator from the
+seed, and its pair capacity from the config.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import random
+import re
 import time
 from dataclasses import dataclass
 
@@ -31,10 +37,17 @@ from .. import resolve_device
 from ..config import Config
 from ..data.dataset import Scene, View
 from ..models import densify as densify_mod
-from ..models.gaussians import create_from_pcd, grow_capacity, next_pow2, pad_rows, save_ply
+from ..models.gaussians import (
+    PARAM_NAMES,
+    create_from_pcd,
+    grow_capacity,
+    next_pow2,
+    pad_rows,
+    save_ply,
+)
 from ..ops.losses import l1_loss, psnr
 from ..ops.rasterize import render_tiled
-from .state import TrainState, init_train_state
+from .state import TrainState, from_numpy, init_train_state
 from .step import make_train_step
 
 
@@ -94,16 +107,12 @@ class Trainer:
         self.gt_images = [torch.from_numpy(np.ascontiguousarray(v.image.transpose(2, 0, 1)))
                           .to(self.device) for v in self.views]
         weights = [alpha_weight_for_view(cfg, v) for v in self.views]
-        use_alpha_weight = any(bool((w > 0).any()) for w in weights)
+        self.use_alpha_weight = any(bool((w > 0).any()) for w in weights)
         self.alpha_weights = [torch.from_numpy(w).to(self.device) for w in weights]
         self.cams = [v.camera.to(self.device) for v in self.views]
         self.bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0,
                              device=self.device)
-        self.steps = {
-            binocular: make_train_step(self.render, cfg, model.spatial_lr_scale,
-                                       binocular=binocular, use_alpha_weight=use_alpha_weight)
-            for binocular in (False, True)
-        }
+        self._build_steps(model.spatial_lr_scale)
         self.rng = random.Random(cfg.train.seed)
         self.generator = torch.Generator().manual_seed(cfg.train.seed)
         self.log: list[TrainerLogEntry] = []
@@ -112,6 +121,21 @@ class Trainer:
         """render_tiled with the trainer's (possibly grown) raster config."""
         return render_tiled(camera, model, bg, raster=self.raster, device=self.device,
                             mean2d_carrier=mean2d_carrier)
+
+    def _build_steps(self, spatial_lr_scale: float):
+        self.steps = {
+            binocular: make_train_step(self.render, self.cfg, spatial_lr_scale,
+                                       binocular=binocular,
+                                       use_alpha_weight=self.use_alpha_weight)
+            for binocular in (False, True)
+        }
+
+    def load_checkpoint(self, path: str) -> int:
+        """Replace the state with a checkpoint's (its capacity, SH degrees and
+        spatial_lr_scale) and return the checkpoint's iteration."""
+        self.state, iteration = load_checkpoint(path, self.device)
+        self._build_steps(self.state.model.spatial_lr_scale)
+        return iteration
 
     def _draw_trans(self) -> float:
         """The binocular shift d ~ U(0, cam_trans_dist) with a random sign
@@ -144,10 +168,14 @@ class Trainer:
                     and iteration % opt.densification_interval == 0):
                 self._densify()
 
-            # --detect_anomaly analogue (reference train.py:272,297)
+            # --detect_anomaly analogue (reference train.py:272,297): dump the
+            # state, then abort
             if cfg.pipeline.debug and not np.isfinite(float(metrics.loss)):
+                path = os.path.join(cfg.model.model_path or ".", f"anomaly_{iteration}.npz")
+                save_checkpoint(self.state, iteration, path)
                 raise FloatingPointError(
-                    f"non-finite loss {float(metrics.loss)} at iteration {iteration}"
+                    f"non-finite loss {float(metrics.loss)} at iteration {iteration}; "
+                    f"state dumped to {path}"
                 )
 
             if progress is not None and iteration % 10 == 0:
@@ -167,6 +195,8 @@ class Trainer:
                 self.report(iteration)
             if iteration in cfg.train.save_iterations:
                 self.save(iteration)
+            if iteration in cfg.train.checkpoint_iterations:
+                self.save_checkpoint(iteration)
         return self.state
 
     def _maybe_grow_pair_capacity(self, metrics, iteration: int):
@@ -249,3 +279,61 @@ class Trainer:
             return
         save_ply(self.state.model, os.path.join(
             self.cfg.model.model_path, f"point_cloud/iteration_{iteration}/point_cloud.ply"))
+
+    def save_checkpoint(self, iteration: int):
+        if not self.cfg.model.model_path:
+            return
+        save_checkpoint(self.state, iteration,
+                        os.path.join(self.cfg.model.model_path, f"chkpnt{iteration}.npz"))
+
+
+def save_checkpoint(state: TrainState, iteration: int, path: str) -> None:
+    """The whole training state as the JAX package's npz (reference
+    `capture()`, `scene/gaussian_model.py:61-75`): `params.*`, `adam_m.*`,
+    `adam_v.*` (float32, every capacity row), `active` (bool), `adam_step`
+    (0-d int32), `grad_accum`, `denom`, `max_radii2d` (float32), `meta`
+    ([iteration, active_sh_degree, max_sh_degree], int64) and
+    `spatial_lr_scale` (0-d float64)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    model = state.model
+    arrays = {}
+    for prefix, tree in (("params", model.params), ("adam_m", state.adam_m),
+                         ("adam_v", state.adam_v)):
+        for n in PARAM_NAMES:
+            arrays[f"{prefix}.{n}"] = host(getattr(tree, n))
+    arrays["active"] = host(model.active)
+    arrays["adam_step"] = np.asarray(state.adam_step, dtype=np.int32)
+    for n in ("grad_accum", "denom", "max_radii2d"):
+        arrays[n] = host(getattr(state, n))
+    arrays["meta"] = np.asarray([iteration, model.active_sh_degree, model.max_sh_degree])
+    arrays["spatial_lr_scale"] = np.asarray(float(model.spatial_lr_scale))
+    np.savez(path, **arrays)
+
+
+def find_latest_checkpoint(model_path: str) -> str | None:
+    """The newest chkpnt<N>.npz in the model directory, or None."""
+    if not model_path or not os.path.isdir(model_path):
+        return None
+    found = [(int(m.group(1)), f) for f in os.listdir(model_path)
+             if (m := re.fullmatch(r"chkpnt(\d+)\.npz", f))]
+    return os.path.join(model_path, max(found)[1]) if found else None
+
+
+def load_checkpoint(path: str, device: str | torch.device = "cuda"):
+    """(TrainState on `device`, iteration) of a checkpoint written by either
+    package; the capacity and SH degrees are the checkpoint's."""
+    with np.load(path) as z:
+        def tree(prefix):
+            return {n: z[f"{prefix}.{n}"] for n in PARAM_NAMES}
+
+        iteration, active_sh, max_sh = (int(x) for x in z["meta"])
+        state = from_numpy(
+            tree("params"), z["active"], tree("adam_m"), tree("adam_v"), int(z["adam_step"]),
+            z["grad_accum"], z["denom"], z["max_radii2d"], max_sh_degree=max_sh,
+            active_sh_degree=active_sh, spatial_lr_scale=float(z["spatial_lr_scale"]),
+            device=resolve_device(device))
+    return state, iteration

@@ -40,8 +40,24 @@ fails (non-zero exit) if any phase fails:
      per-stage times, peak memory, device busy share and top kernels; one
      step at 5k gaussians and 256x192 on the card against the CPU
  10. entry point: `cli train` (densification and the binocular branch
-     reached) on the phase-6 scene, then `cli render` and `cli metrics` on
-     its output
+     reached, checkpoints at 30 and 60) on the phase-6 scene, then `cli
+     render` and `cli metrics` on its output; chkpnt60.npz, loaded on the
+     card, equals the trainer's final state bit for bit
+ 11. resume: `cli train --start_checkpoint chkpnt30.npz --iterations 60
+     --profile_dir`: the state the resumed trainer steps from equal to
+     chkpnt30.npz bit for bit (every buffer, adam_step 30, SH degrees and
+     spatial_lr_scale), iteration 60 reached with a finite loss, 2 blend forward,
+     2 blend backward, 1 warp forward and 1 warp backward launch per resumed
+     step, and the four kernels named in the trace
+ 12. `cli spiral --n_frames 8 --no_video` of the phase-10 model at 1008x756
+     (the scene's poses_bounds.npy): 24 PNGs, 8 blend forward launches,
+     something rendered in every frame; ms per frame
+ 13. `cli metrics --lpips_weights` (random vgg weights from --seed) on the
+     phase-6 renders: LPIPS on the card within 1e-4 relative of the CPU's;
+     ms per 1008x756 image
+ 14. viewer: a loopback client sends one 1008x756 request; `serve_step`
+     with a `render_tiled` callback on the card returns the bytes of a
+     direct render's uint8 image
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -678,7 +694,8 @@ def device_busy(torch, fn, tag, unprofiled_ms, reps=10):
 def write_colmap_scene(root, seed, n_points=20_000):
     """9 PINHOLE views at W x H on an arc, numpy-seeded PNGs, `n_points`
     random points in the workload's slab (create_from_pcd, its 3-NN scales
-    and densification do real work on them)."""
+    and densification do real work on them), and a poses_bounds.npy of the
+    same cameras with the depth range of the points, for `cli spiral`."""
     from PIL import Image
 
     from binocular3dgs_torch.core.transforms import fov2focal
@@ -700,6 +717,14 @@ def write_colmap_scene(root, seed, n_points=20_000):
     colmap.write_images_binary(f"{root}/sparse/0/images.bin", images)
     colmap.write_points3d_binary(f"{root}/sparse/0/points3D.bin", pts,
                                  rng.integers(0, 255, (n_points, 3)), np.zeros((n_points, 1)))
+    # LLFF rows: [down, right, backwards, centre, (H, W, focal)], near, far
+    rows = []
+    for R, T in arc_poses(9):
+        center = -R @ T
+        pose = np.stack([R[:, 1], R[:, 0], -R[:, 2], center, [H, W, fx]], axis=1)
+        z = (pts - center) @ R[:, 2]
+        rows.append(np.concatenate([pose.ravel(), [z.min(), z.max()]]))
+    np.save(f"{root}/poses_bounds.npy", np.asarray(rows))
 
 
 def phase_entry_point(torch, model, scene, work):
@@ -908,8 +933,81 @@ def train_card_vs_cpu(torch, seed, device):
     return dict(loss_card=loss_g, loss_cpu=loss_c, loss_rel=loss_rel, rel_norm=rel)
 
 
-def phase_cli_train(scene, work):
+class TrainerProbe:
+    """Wraps train/loop.py's Trainer while a `cli train` runs: keeps the
+    trainer, its model's (point count, capacity, SH degree), a copy of every
+    state buffer and its (adam_step, active and max SH degree,
+    spatial_lr_scale) at the start of its first train() call, and the host
+    time of each checkpoint write."""
+
+    def __init__(self, torch):
+        from binocular3dgs_torch.train import loop
+
+        self.torch, self.loop = torch, loop
+        self.trainer, self.at_start, self.save_s = None, None, []
+        self.start_buffers, self.start_meta = None, None
+
+    def __enter__(self):
+        probe, cls = self, self.loop.Trainer
+        self.originals = cls.train, cls.save_checkpoint
+
+        def train(trainer, *a, **k):
+            if probe.trainer is None:
+                m = trainer.state.model
+                probe.trainer = trainer
+                probe.at_start = (int(m.count()), m.capacity, m.active_sh_degree)
+                probe.start_buffers = {k: v.clone()
+                                       for k, v in state_tensors(trainer.state).items()}
+                probe.start_meta = state_meta(trainer.state)
+            return probe.originals[0](trainer, *a, **k)
+
+        def save_checkpoint(trainer, iteration):
+            probe.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probe.originals[1](trainer, iteration)
+            probe.save_s.append(time.perf_counter() - t0)
+
+        cls.train, cls.save_checkpoint = train, save_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.Trainer.train, self.loop.Trainer.save_checkpoint = self.originals
+
+
+def state_tensors(state):
+    """name -> tensor of every buffer of a TrainState."""
+    from binocular3dgs_torch.models.gaussians import PARAM_NAMES
+
+    out = {"active": state.model.active}
+    for prefix, tree in (("params", state.model.params), ("adam_m", state.adam_m),
+                         ("adam_v", state.adam_v)):
+        out.update({f"{prefix}.{n}": getattr(tree, n) for n in PARAM_NAMES})
+    out.update({n: getattr(state, n) for n in ("grad_accum", "denom", "max_radii2d")})
+    return out
+
+
+def state_meta(state):
+    """(adam_step, active SH degree, max SH degree, spatial_lr_scale)."""
+    m = state.model
+    return state.adam_step, m.active_sh_degree, m.max_sh_degree, m.spatial_lr_scale
+
+
+def differing_buffers(want, got):
+    """Names of the buffers of two state_tensors() that differ in dtype,
+    shape or any bit (float32 compared as int32 views, so NaNs compare)."""
+    import torch
+
+    def bits(v):
+        return v.view(torch.int32) if v.dtype == torch.float32 else v
+
+    return [k for k, v in want.items()
+            if v.dtype != got[k].dtype or v.shape != got[k].shape
+            or not torch.equal(bits(v), bits(got[k]))]
+
+
+def phase_cli_train(torch, scene, work):
     from binocular3dgs_torch import cli
+    from binocular3dgs_torch.train.loop import load_checkpoint
 
     out = os.path.join(work, "trained")
     launch_counts(reset=True)
@@ -920,10 +1018,29 @@ def phase_cli_train(scene, work):
     argv = ["train", "-s", scene, "-m", out, "--eval", "--iterations", "60",
             "--shift_cam_start", "20", "--densify_from_iter", "20",
             "--densification_interval", "20", "--densify_grad_threshold", "1e-6",
-            "--test_iterations", "60", "--save_iterations", "60"]
-    check(cli.main(argv) == 0, "cli train failed")
+            "--test_iterations", "60", "--save_iterations", "60",
+            "--checkpoint_iterations", "30", "60"]
+    with TrainerProbe(torch) as probe:
+        check(cli.main(argv) == 0, "cli train failed")
     t_train = time.perf_counter() - t0
     counts = launch_counts()
+
+    # the last checkpoint against the trainer's final state, bit for bit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded, it = load_checkpoint(os.path.join(out, "chkpnt60.npz"), "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    final = probe.trainer.state
+    unequal = differing_buffers(state_tensors(final), state_tensors(loaded))
+    same_meta = (it, *state_meta(loaded)) == (60, *state_meta(final))
+    ckpt_mb = os.path.getsize(os.path.join(out, "chkpnt60.npz")) / 2**20
+    log(f"[10 train cli] chkpnt60.npz ({ckpt_mb:.1f} MiB, capacity {loaded.model.capacity}, "
+        f"{int(loaded.model.count())} points) loaded on the card in {load_s * 1e3:.1f} ms equals "
+        f"the trainer's final state bit for bit: {not unequal and same_meta} "
+        f"(buffers differing: {unequal}); checkpoint writes {[round(x, 4) for x in probe.save_s]} s "
+        f"(host clock)")
+    check(not unequal and same_meta, f"chkpnt60.npz differs from the final state in {unequal}")
     with open(os.path.join(out, "train_log.json")) as f:
         train_log = json.load(f)
     points = [e["points"] for e in train_log]
@@ -950,7 +1067,240 @@ def phase_cli_train(scene, work):
     log(f"[10 train cli] render {t_render:.2f} s, metrics {t_metrics:.2f} s (host clock); "
         f"results {res}")
     return dict(train_s=t_train, render_s=t_render, metrics_s=t_metrics, points=points,
-                disparity_loss=disp, launches=counts, psnr=res["PSNR"], ssim=res["SSIM"])
+                disparity_loss=disp, launches=counts, psnr=res["PSNR"], ssim=res["SSIM"],
+                checkpoint_write_s=probe.save_s, checkpoint_load_s=load_s,
+                checkpoint_mib=ckpt_mb,
+                pairs_per_gaussian=probe.trainer.raster.pairs_per_gaussian), out
+
+
+def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
+    """cli train resumed from phase 10's chkpnt30.npz to 60 under the
+    profiler; no report, so the launch counts are the 30 steps' alone. The
+    state at the first resumed step is held bit for bit against the
+    checkpoint (chkpnt30 precedes the densification at 40, so its point
+    count and capacity alone are those of a fresh start). The
+    pair capacity restarts from the flag and grows at the first resumed
+    step when phase 10's grew."""
+    import contextlib
+    import io
+
+    from binocular3dgs_torch import cli
+    from binocular3dgs_torch.config import load_config
+    from binocular3dgs_torch.train.loop import load_checkpoint
+
+    ckpt = os.path.join(trained, "chkpnt30.npz")
+    ckpt_state, _ = load_checkpoint(ckpt, "cuda")
+    m = ckpt_state.model
+    want = (int(m.count()), m.capacity, m.active_sh_degree)
+    out, prof = os.path.join(work, "resumed"), os.path.join(work, "profile")
+    argv = ["train", "-s", scene, "-m", out, "--eval", "--iterations", "60",
+            "--shift_cam_start", "20", "--densify_from_iter", "20",
+            "--densification_interval", "20", "--densify_grad_threshold", "1e-6",
+            "--test_iterations", "0", "--save_iterations", "60",
+            "--start_checkpoint", ckpt, "--profile_dir", prof]
+    text = io.StringIO()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    with TrainerProbe(torch) as probe, contextlib.redirect_stdout(text):
+        rc = cli.main(argv)
+    t_train = time.perf_counter() - t0
+    counts = launch_counts()
+    check(rc == 0, f"resumed cli train failed:\n{text.getvalue()[-2000:]}")
+    with open(os.path.join(out, "train_log.json")) as f:
+        train_log = json.load(f)
+    steps = 30
+    expected = dict(blend_forward=2 * steps, blend_backward=2 * steps, warp_forward=steps,
+                    warp_backward=steps)
+    resumed = f"Resumed from {ckpt} at iteration 30" in text.getvalue()
+    grown = [line for line in text.getvalue().splitlines() if "pair capacity grown" in line]
+    ppg = probe.trainer.raster.pairs_per_gaussian
+    with open(os.path.join(prof, "trace.json")) as f:  # ~5 MB of events per step
+        trace = f.read()
+    symbols = {k: k in trace for k in (
+        "blend_forward_kernel", "blend_backward_kernel", "warp_forward_kernel",
+        "warp_backward_kernel")}
+    trace_mib = os.path.getsize(os.path.join(prof, "trace.json")) / 2**20
+    # the state the resumed trainer steps from, against the checkpoint
+    unequal = differing_buffers(state_tensors(ckpt_state), probe.start_buffers)
+    meta = state_meta(ckpt_state)
+    restored = not unequal and probe.start_meta == meta and meta[0] == 30
+    last = train_log[-1]
+    log(f"[11 resume] printed the resume at 30: {resumed}; at the first step (points, capacity, "
+        f"SH degree) {probe.at_start} against the checkpoint's {want}; every buffer and "
+        f"(adam_step, SH degrees, spatial_lr_scale) {probe.start_meta} equal to chkpnt30.npz's "
+        f"{meta} bit for bit: {restored} (buffers differing: {unequal}); {len(train_log)} log "
+        f"entries, last iteration {last['iteration']} loss {last['loss']:.6f}, points per logged "
+        f"iteration {[e['points'] for e in train_log]}; launches {counts} (expected {expected}); "
+        f"{t_train:.2f} s for 30 steps under the profiler (host clock, scene load and trace "
+        f"export included), {[round(e['iters_per_sec'], 2) for e in train_log]} it/s; trace "
+        f"{trace_mib:.1f} MiB names {symbols}; pair capacity: {grown}, pairs_per_gaussian "
+        f"{ppg} (phase 10: {pairs_per_gaussian})")
+    check(resumed, "cli train did not print the resume at iteration 30")
+    check(probe.at_start == want, f"resumed at {probe.at_start}, checkpoint {want}")
+    check(restored, f"the resumed state differs from chkpnt30.npz in {unequal} or "
+          f"{probe.start_meta} against {meta}")
+    check(last["iteration"] == 60 and np.isfinite(last["loss"]), f"resume ended at {last}")
+    check(counts == expected, f"resumed launches {counts}, expected {expected}")
+    check(all(symbols.values()), f"the trace misses kernels: {symbols}")
+    # the pair capacity restarts from the flag: if phase 10's grew, the
+    # resumed run's grows at its first step (later growth depends on the
+    # replayed draws)
+    flag = load_config(os.path.join(out, "cfg_args.json")).raster.pairs_per_gaussian
+    check(pairs_per_gaussian == flag or (grown and "[ITER 31]" in grown[0]),
+          f"pair capacity after the resume {ppg} ({grown}), phase 10 {pairs_per_gaussian}")
+    return dict(train_s=t_train, at_start=probe.at_start, checkpoint=want,
+                restored_bit_exact=restored, launches=counts,
+                pairs_per_gaussian=ppg, pair_growth=grown,
+                iters_per_sec=[e["iters_per_sec"] for e in train_log], loss=last["loss"],
+                trace_mib=trace_mib, trace_kernels=symbols)
+
+
+def phase_spiral(torch, trained, n_frames=8):
+    """cli spiral of the phase-10 model; render_tiled wrapped to read each
+    frame's alpha share and render time."""
+    from binocular3dgs_torch import cli
+    from binocular3dgs_torch.ops import rasterize
+
+    original = rasterize.render_tiled
+    frames = []
+
+    def render_tiled(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = original(*a, **k)
+        e.record()
+        frames.append((out, s, e))
+        return out
+
+    launch_counts(reset=True)
+    rasterize.render_tiled = render_tiled
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["spiral", "-m", trained, "--n_frames", str(n_frames), "--no_video"])
+        t_spiral = time.perf_counter() - t0
+    finally:
+        rasterize.render_tiled = original
+    launches = launch_counts()["blend_forward"]
+    check(rc == 0, "cli spiral failed")
+    d = os.path.join(trained, "spiral", "ours_60")
+    pngs = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    alpha = [float(o.alpha.mean()) for o, _, _ in frames]
+    render_ms = [s.elapsed_time(e) for _, s, e in frames]
+    shape = tuple(frames[0][0].image.shape) if frames else None
+    log(f"[12 spiral] {len(pngs)} PNGs, blend_forward launches {launches}, frames {shape}, "
+        f"alpha share per frame {[round(a, 4) for a in alpha]}; {t_spiral / n_frames * 1e3:.1f} "
+        f"ms per frame with the depth colouring and 3 PNG writes (host clock), render "
+        f"{float(np.median(render_ms)):.4f} ms median (CUDA events)")
+    check(len(pngs) == 3 * n_frames, f"spiral wrote {len(pngs)} PNGs")
+    check(launches == n_frames, f"spiral launched blend_forward {launches} times")
+    check(shape == (3, H, W), f"spiral frames are {shape}")
+    check(min(alpha) > 0, f"a spiral frame renders nothing: {alpha}")
+    return dict(pngs=len(pngs), launches=launches, alpha_share=alpha,
+                ms_per_frame=t_spiral / n_frames * 1e3, render_ms=render_ms)
+
+
+def phase_lpips(torch, seed, work, model_dir):
+    """cli metrics --lpips_weights on phase 6's renders, against the same
+    LPIPS on the CPU."""
+    from binocular3dgs_torch import cli
+    from binocular3dgs_torch.eval.lpips import make_lpips, random_lpips_weights
+    from binocular3dgs_torch.eval.metrics import _load_image
+
+    weights = random_lpips_weights("vgg", seed)
+    path = os.path.join(work, "lpips_vgg.npz")
+    np.savez(path, **weights)
+    t0 = time.perf_counter()
+    check(cli.main(["metrics", "-m", model_dir, "--lpips_weights", path]) == 0,
+          "cli metrics --lpips_weights failed")
+    t_metrics = time.perf_counter() - t0
+    with open(os.path.join(model_dir, "per_view.json")) as f:
+        card = json.load(f)["ours_1"]["LPIPS"]
+    d = os.path.join(model_dir, "test", "ours_1")
+    cpu_fn, card_fn = make_lpips(weights, device="cpu"), make_lpips(weights, device="cuda")
+    rel, cpu, pair = {}, {}, None
+    for name, got in sorted(card.items()):
+        pair = [torch.from_numpy(_load_image(os.path.join(d, sub, name)))
+                for sub in ("renders", "gt")]
+        cpu[name] = float(cpu_fn(*pair))
+        rel[name] = abs(got - cpu[name]) / abs(cpu[name])
+    img = [x.cuda() for x in pair]
+    ms = median_ms(torch, lambda: card_fn(*img), warmup=2, iters=5)
+    log(f"[13 lpips] card LPIPS {card}, CPU {cpu}; relative difference {rel} (tol 1e-4); "
+        f"{ms:.3f} ms per {W}x{H} image pair (CUDA events, median of 5); cli metrics "
+        f"{t_metrics:.2f} s (host clock)")
+    check(len(card) == 2, f"LPIPS for {len(card)} test views")
+    check(all(np.isfinite(v) and v > 0 for v in card.values()), f"LPIPS values {card}")
+    check(max(rel.values()) <= 1e-4, f"card LPIPS differs from the CPU's by {rel}")
+    return dict(lpips=card, lpips_cpu=cpu, rel_cpu=rel, ms_per_image=ms, metrics_s=t_metrics)
+
+
+def phase_viewer(torch, model, cam, device):
+    """One 1008x756 viewer request over loopback, served by serve_step with
+    a render_tiled callback, against a direct render's uint8 image."""
+    import socket
+    import threading
+
+    from binocular3dgs_torch.ops.rasterize import render_tiled
+    from binocular3dgs_torch.render.network_gui import NetworkGUI, viewer_camera
+
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():
+        direct = render_tiled(cam, model, bg, device=device).image
+    want = (np.clip(direct.permute(1, 2, 0).cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    view, proj = cam.world_view.cpu().numpy().copy(), cam.full_proj.cpu().numpy().copy()
+    for m in (view, proj):  # a SIBR client's OpenGL axes
+        m[:, 1:3] *= -1
+    msg = json.dumps({
+        "resolution_x": W, "resolution_y": H, "train": True, "fov_y": FOVY, "fov_x": FOVX,
+        "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+        "keep_alive": False, "scaling_modifier": 1.0, "view_matrix": view.ravel().tolist(),
+        "view_projection_matrix": proj.ravel().tolist()}).encode()
+    received = {}
+
+    def client():
+        with socket.create_connection(("127.0.0.1", gui.port), timeout=60) as c:
+            c.sendall(len(msg).to_bytes(4, "little") + msg)
+            buf = b""
+            while len(buf) < W * H * 3 + 4:
+                chunk = c.recv(1 << 20)
+                if not chunk:
+                    break
+                buf += chunk
+            n = int.from_bytes(buf[W * H * 3:W * H * 3 + 4], "little")
+            while len(buf) < W * H * 3 + 4 + n:
+                buf += c.recv(n)
+            received["img"], received["verify"] = buf[:W * H * 3], buf[W * H * 3 + 4:].decode()
+
+    @torch.no_grad()
+    def render_fn(req):
+        out = render_tiled(viewer_camera(req, device), model, bg, device=device)
+        return out.image.permute(1, 2, 0)
+
+    gui = NetworkGUI(port=0)
+    t = threading.Thread(target=client)
+    launch_counts(reset=True)
+    try:
+        t.start()
+        for _ in range(1000):
+            if gui.try_connect():
+                break
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        gui.serve_step(render_fn, verify="chip_smoke", training_done=False)
+        t_serve = time.perf_counter() - t0
+        t.join(timeout=60)
+    finally:
+        gui.close()
+    launches = launch_counts()["blend_forward"]
+    equal = received.get("img") == want.tobytes()
+    log(f"[14 viewer] served {len(received.get('img', b''))} bytes in {t_serve * 1e3:.1f} ms "
+        f"(host clock: request parse, render, copy to the host, send), blend_forward launches "
+        f"{launches}; equal to the direct render's uint8 image: {equal}; verify "
+        f"{received.get('verify')!r}")
+    check(not t.is_alive() and received.get("verify") == "chip_smoke", "viewer client failed")
+    check(equal, "the served image differs from the direct render")
+    check(launches == 1, f"serve_step launched blend_forward {launches} times")
+    return dict(serve_ms=t_serve * 1e3, launches=launches, bytes_equal=equal)
 
 
 def main():
@@ -1004,13 +1354,21 @@ def main():
         scene = os.path.join(work, "scene")
         write_colmap_scene(scene, args.seed)
         cli_res = phase_entry_point(torch, model, scene, work)
-        cli_train = phase_cli_train(scene, work)
+        cli_train, trained = phase_cli_train(torch, scene, work)
+        resume = phase_resume(torch, scene, work, trained, cli_train["pairs_per_gaussian"])
+        spiral = phase_spiral(torch, trained)
+        lpips = phase_lpips(torch, args.seed, work, os.path.join(work, "model"))
+        viewer = phase_viewer(torch, model, cam, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    b1["launches_spiral"] = spiral["launches"]
+    for k in (b1, b2, w1, w2):
+        k["launches_resumed"] = resume["launches"][k["name"]]
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [b1, b2, w1, w2], "main_path": main_path, "train": train,
-                      "cli": cli_res, "cli_train": cli_train, "card": smi}))
+                      "cli": cli_res, "cli_train": cli_train, "resume": resume,
+                      "spiral": spiral, "lpips": lpips, "viewer": viewer, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

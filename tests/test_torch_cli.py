@@ -1,6 +1,8 @@
 """The port's CLI (render + metrics + aggregate, in-process, --device cpu)
 against the JAX CLI on the same tiny fabricated COLMAP scene and trained
-model; `cli train` is held in test_torch_train.py."""
+model; `cli train` is held in test_torch_train.py and
+test_torch_checkpoint.py, `cli spiral` in test_torch_spiral.py and
+`metrics --lpips_weights` in test_torch_lpips.py."""
 
 import json
 import os
@@ -107,9 +109,6 @@ def test_aggregate_and_config(rendered, capsys):
 
 
 UNPORTED = {
-    # train is ported; its checkpoint resume is not
-    "train": ["train", "-s", "x", "--start_checkpoint", "latest", "--device", "cpu"],
-    "spiral": ["spiral", "-s", "x"],
     "triangulate": ["triangulate", "-s", "x"],
     "run": ["run", "-s", "x"],
 }

@@ -27,7 +27,8 @@ def test_scans_the_port():
     assert len(FILES) > 15 and (REPO / "chip_smoke.py").exists()
     names = {str(p.relative_to(REPO)) for p in FILES}
     for module in ("ops/warp.py", "ops/knn.py", "models/densify.py", "train/state.py",
-                   "train/step.py", "train/loop.py"):
+                   "train/step.py", "train/loop.py", "render/spiral.py", "render/pose_utils.py",
+                   "render/network_gui.py", "eval/lpips.py", "quality_run.py"):
         assert f"binocular3dgs_torch/{module}" in names, module
 
 

@@ -2,7 +2,8 @@
 inputs: masked Adam, densification (with the JAX split normals fed in),
 opacity decay and reset, the 3-NN init distances, create_from_pcd, one
 whole binocular train step against make_train_step, and an end-to-end
-`cli train --device cpu` on a tiny fabricated scene."""
+`cli train --device cpu` on a tiny fabricated scene (its checkpoints,
+resume, trace and anomaly dump: test_torch_checkpoint.py)."""
 
 import json
 import os
@@ -396,14 +397,6 @@ def test_cli_train_end_to_end(tmp_path, capsys):
     # the trained model serves through the port's render
     assert cli.main(["render", "-m", out, "--device", "cpu", "--skip_test"]) == 0
     assert len(os.listdir(os.path.join(out, "train", "ours_40", "renders"))) == 3
-
-
-@pytest.mark.parametrize("flag", [["--start_checkpoint", "c.npz"],
-                                  ["--checkpoint_iterations", "10"],
-                                  ["--profile_dir", "p"]])
-def test_cli_train_refuses_unported_flags(flag, capsys):
-    assert cli.main(["train", "-s", "x", "-m", "y", "--device", "cpu"] + flag) == 2
-    assert "not yet ported" in capsys.readouterr().out
 
 
 # -- trainer ----------------------------------------------------------------------------
