@@ -11,7 +11,9 @@ Ported so far: the serving path — load a trained scene, render views
 training path: the binocular train step (two renders, the disparity warp,
 losses, autograd through the blend and warp kernels, masked Adam),
 densification and the trainer behind `cli train`, with checkpoints that
-interchange with the JAX package's and a profiler trace.
+interchange with the JAX package's and a profiler trace; and the dense init
+behind `cli triangulate` (its own Farneback flow, `init/`) and the per-scene
+pipeline behind `cli run` (`orchestrate.py`).
 """
 
 from __future__ import annotations
@@ -29,9 +31,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     the card must be float32. The JAX package lost a round to silent
     reduced-precision TPU matmuls (`binocular3dgs_tpu/__init__.py`); on
     Hopper the same trap is TF32, which cuDNN convolutions use by default.
+
+    And it restricts cuDNN to its deterministic algorithms (and turns its
+    benchmark search off), so that a convolution's backward, SSIM's above
+    all, adds in the same order on every run and training repeats bit for
+    bit.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -4,11 +4,13 @@ Same subcommands and flags as `binocular3dgs_tpu/cli.py`, plus `--device`
 (default `cuda`; with no GPU present a CUDA run raises, it does not carry on
 on the CPU):
 
-  python -m binocular3dgs_torch.cli train     -s <scene> -m <model> [...]
+  python -m binocular3dgs_torch.cli train       -s <scene> -m <model> [...]
+  python -m binocular3dgs_torch.cli triangulate -s <scene> [--output_path <dir>] [...]
   python -m binocular3dgs_torch.cli render    -m <model> [-s <scene>]
   python -m binocular3dgs_torch.cli spiral    -m <model> [--n_frames N] [...]
   python -m binocular3dgs_torch.cli metrics   -m <model> [--lpips_weights <npz>]
   python -m binocular3dgs_torch.cli aggregate -m <model> [...]
+  python -m binocular3dgs_torch.cli run       --dataset_name LLFF --data_path <dir> [...]
 
 `train` writes `cfg_args.json`, checkpoints at `--checkpoint_iterations`,
 resumes from `--start_checkpoint <path|latest>` (a checkpoint of either
@@ -16,8 +18,11 @@ package) and traces its first iterations into `--profile_dir`; `render` and
 `spiral` read the model settings from that file alone, as the JAX CLI does
 (their `--eval`, `-r`, `-i`, `-w` and `--sh_degree` are accepted and
 ignored; `-m` and `-s` apply). `train` leaves out the TPU-only `--backend`,
-`--max_pairs_per_tile` and `--raster_chunk`. `triangulate` and `run` are
-not ported yet: they print so and exit non-zero.
+`--max_pairs_per_tile` and `--raster_chunk`. `triangulate` has the
+Farneback matcher; `--matcher pdcnet` (PDCNet+, not ported yet) prints so
+and exits non-zero. `run` (orchestrate.py) drives triangulate, train,
+render and metrics per scene, each a `binocular3dgs_torch.cli` process on
+`--device`.
 """
 
 from __future__ import annotations
@@ -34,9 +39,6 @@ import torch
 
 from . import resolve_device
 from .config import Config, load_config, save_config
-
-NOT_PORTED = ("triangulate", "run")
-
 
 def _add_common_model_flags(p: argparse.ArgumentParser):
     # reference arguments/__init__.py:47-91
@@ -352,21 +354,68 @@ def cmd_aggregate(argv):
     return 0
 
 
+def cmd_triangulate(argv):
+    # reference submodules/dense_matcher/triangulate.py CLI
+    p = argparse.ArgumentParser("triangulate")
+    p.add_argument("--scene_path", "-s", type=str, required=True)
+    p.add_argument("--output_path", type=str, default="keypoints_to_3d/LLFF")
+    p.add_argument("--images", type=str, default="images")
+    p.add_argument("--dataset_name", type=str, default="LLFF")
+    p.add_argument("--n_views", type=int, default=3)
+    p.add_argument("--resolution", type=int, default=8)
+    p.add_argument("--matcher", type=str, default="farneback")
+    p.add_argument("--pdcnet_weights", type=str, default=None)
+    p.add_argument("--growth_iterations", type=int, default=1000)
+    p.add_argument("--ssim_threshold", type=float, default=0.95)
+    _add_device_flag(p)
+    args = p.parse_args(argv)
+
+    from .init.matchers import select_matcher
+    from .init.pipeline import TriangulateConfig, triangulate_scene
+
+    device = resolve_device(args.device)
+    if args.matcher.lower().startswith("pdcnet"):
+        kwargs = {"weights_path": args.pdcnet_weights}
+    else:
+        kwargs = {"device": device}
+    try:
+        matcher = select_matcher(args.matcher, **kwargs)
+    except NotImplementedError as e:
+        print(e)
+        return 2
+    cfg = TriangulateConfig(
+        dataset_name=args.dataset_name,
+        n_views=args.n_views,
+        resolution=args.resolution,
+        growth_iterations=args.growth_iterations,
+        ssim_threshold=args.ssim_threshold,
+    )
+    ply = triangulate_scene(args.scene_path, args.output_path, matcher, cfg, args.images,
+                            device=device)
+    print(f"wrote {ply}")
+    return 0
+
+
+def cmd_run(argv):
+    # reference script/run_llff.py / run_dtu.py / run_blender.py dispatcher
+    from .orchestrate import main as orchestrate_main
+
+    return orchestrate_main(argv)
+
+
 COMMANDS = {
     "train": cmd_train,
+    "triangulate": cmd_triangulate,
     "render": cmd_render,
     "spiral": cmd_spiral,
     "metrics": cmd_metrics,
     "aggregate": cmd_aggregate,
+    "run": cmd_run,
 }
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"'{argv[0]}' is not yet ported to binocular3dgs_torch; "
-              f"use python -m binocular3dgs_tpu.cli {argv[0]}")
-        return 2
     if not argv or argv[0] not in COMMANDS:
         print(f"usage: python -m binocular3dgs_torch.cli {{{','.join(COMMANDS)}}} ...")
         return 1

@@ -8,7 +8,9 @@ float32, or (B, C, H, W).
 
 SSIM blurs with a grouped convolution, as the reference does; cuDNN runs
 float32 convolutions in TF32 unless `torch.backends.cudnn.allow_tf32` is
-off, which the entry points ensure (binocular3dgs_torch.resolve_device).
+off, and may pick a backward that adds in another order on each run unless
+`torch.backends.cudnn.deterministic` is on; the entry points set both
+(binocular3dgs_torch.resolve_device).
 """
 
 from __future__ import annotations

@@ -9,16 +9,23 @@ Counterpart of `binocular3dgs_tpu/ops/rasterize.py` (`render_tiled`,
   3. a field-major (10, N) record table, depth-reordered once
      (`fields[:, order]`), then gathered per pair (`fields_d[:, pair_gauss]`)
      into (10, P): each tile's records are one contiguous segment; both by
-     `index_select`, whose backward is an `index_add_`
+     `index_select`, the pair gather with a backward that adds in a fixed
+     order
   4. blend (ops/blend_cuda.py): the CUDA kernel reads each tile's exact
      segment, so the pair axis carries no chunk padding
   5. (5, T, S) tile planes -> (5, H, W) image planes, cropped
 
 Gradients: the blend's autograd backward (kernel B2) gives the per-pair
-record cotangents; plain autograd of the pair gather and the depth reorder
-sums them per gaussian (the VJPs the JAX package writes by hand,
-`rasterize.py:124-237`, were XLA, not Pallas); the vertex stage is plain
-autograd down to the parameters and the optional `mean2d_carrier`.
+record cotangents; the pair gather's backward sums them per gaussian, as
+the JAX package's hand-written VJP does (`rasterize.py:124-237`, XLA, not
+Pallas). Autograd's own backward of `index_select` is an `index_add_` whose
+float atomics add a gaussian's pairs in another order on every run; here
+the pairs are sorted by gaussian (a stable sort) and each gaussian's
+segment is summed in pair order, so a training step repeats bit for bit.
+The depth reorder keeps autograd's `index_add_`: a permutation adds one
+term onto each zero, which no order changes.
+The vertex stage is plain autograd down to the parameters and the optional
+`mean2d_carrier`.
 Serving callers render under `torch.no_grad()`.
 
 Static capacity: `pair_capacity = pairs_per_gaussian * N`; overflowing
@@ -61,13 +68,43 @@ def _build_fields(proj: ProjectedGaussians) -> torch.Tensor:
     )
 
 
+class _GatherRecords(torch.autograd.Function):
+    """fields_d[:, index] (10, P); the backward sums each column's
+    cotangents in a fixed order: the pairs stably sorted by column, then one
+    segment sum per column in pair order (`torch.segment_reduce` adds each
+    segment sequentially)."""
+
+    @staticmethod
+    def forward(ctx, fields_d, index):
+        ctx.save_for_backward(index)
+        ctx.n = fields_d.shape[1]
+        return torch.index_select(fields_d, 1, index)
+
+    @staticmethod
+    def backward(ctx, d_records):
+        (index,) = ctx.saved_tensors
+        return segment_sum_columns(d_records, index, ctx.n), None
+
+
+def segment_sum_columns(d: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """(K, n) sums of the columns of `d` (K, P) that `index` (P,) names, each
+    column's terms added in ascending pair order: the same bits on every
+    run, on the card and on the CPU."""
+    sorted_index, perm = torch.sort(index, stable=True)
+    # each column's segment bounds, without a host sync (bincount has one)
+    offsets = torch.searchsorted(
+        sorted_index, torch.arange(n + 1, device=index.device, dtype=index.dtype))
+    rows = torch.index_select(d.T, 0, perm)  # (P, K), grouped by column
+    return torch.segment_reduce(rows, "sum", offsets=offsets, axis=0, unsafe=True).T
+
+
 def _gather_index(binning, num_tiles: int) -> torch.Tensor:
     """The pair gather's column per slot: `pair_gauss`, except that the
     slots past the emitted pairs (sentinel tile, rank 0 in `pair_gauss`)
     take distinct columns. The blend never reads those slots and their
     cotangents are 0, but as one column repeated for every unused slot of
-    the capacity they would serialize the gather's backward (an index_add_)
-    on that column."""
+    the capacity they would make that column's segment in the gather's
+    backward as long as the capacity's unused tail."""
     P = binning.pair_gauss.shape[0]
     spread = torch.arange(P, device=binning.pair_gauss.device, dtype=torch.int32)
     spread = spread % binning.order.shape[0]
@@ -117,7 +154,7 @@ def rasterize_projected(
 
     binning = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, W, H, ts, pair_capacity)
     fields_d = torch.index_select(_build_fields(proj), 1, binning.order)
-    records = torch.index_select(fields_d, 1, _gather_index(binning, TW * TH))  # (10, P)
+    records = _GatherRecords.apply(fields_d, _gather_index(binning, TW * TH))  # (10, P)
     out5, _ = blend_forward(records, binning.tile_start, binning.tile_count, TW, TH, ts)
     planes = _tiles_to_planes(out5, TW, TH, ts, H, W)
     rgb, dep, T_final = planes[0:3], planes[3], planes[4]

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's serving path and its training path at full width and
-fails (non-zero exit) if any phase fails:
+Drives the port's serving path, its training path and its dense init at
+full width and fails (non-zero exit) if any phase fails:
 
   1. environment: the card (nvidia-smi name and power limit), torch/CUDA
      versions, TF32 off for matmuls and cuDNN
@@ -58,6 +58,24 @@ fails (non-zero exit) if any phase fails:
  14. viewer: a loopback client sends one 1008x756 request; `serve_step`
      with a `render_tiled` callback on the card returns the bytes of a
      direct render's uint8 image
+ 15. determinism: the phase-9 step from one state and the same shifts, 1
+     and 10 steps, run twice each: parameters, both Adam moments, the
+     densification statistics and the loss equal bit for bit; phase 10's
+     `cli train` run again: chkpnt60.npz and the logged losses equal
+ 16. dense init at the LLFF protocol's size: 9 JPEG views at 4032x3024
+     rendered by the port from a seeded slab of 200k gaussians on the arc
+     cameras; `cli triangulate --resolution 2` (12 Farneback flows at
+     504x378, 1000 growth iterations of 100 x 200 candidates): points,
+     growth, the pre-growth points' median reprojection error under 2 px,
+     flows and scorer on the card; times of the load, each flow, the DLT
+     and filters, the growth per iteration and its busy share; then
+     `orchestrate.run_scene` with the LLFF protocol cut to 60 iterations
+     (triangulate, train at -r 2, render, metrics as `--device cuda`
+     processes): train loads the dense PLY it was given
+ 17. the dense init on the card against the CPU on a 1008x756 copy of that
+     scene: resized images equal, Farneback end-point difference median
+     <= 0.01 px and 99th percentile <= 0.1 px, pre-growth point sets equal
+     within 1e-3 on >= 99% of points, growth scores within 1e-5
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -213,11 +231,11 @@ def make_workload(seed, n=N_GAUSS, width=W, height=H, scales=(0.005, 0.02), opac
     return params, np.ones(n, bool), gt
 
 
-def arc_poses(n):
+def arc_poses(n, span=0.08):
     """(R camera-to-world, T world-to-camera) of n cameras on a small arc
-    around the y axis, all facing the workload's slab."""
+    (+-span rad) around the y axis, all facing the workload's slab."""
     poses = []
-    for a in np.linspace(-0.08, 0.08, n):
+    for a in np.linspace(-span, span, n):
         c, s = np.cos(a), np.sin(a)
         Rw2c = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])  # looks at (0, 0, 6)
         center = np.array([6.0 * np.sin(a), 0.0, 6.0 * (1.0 - np.cos(a))])
@@ -1303,6 +1321,482 @@ def phase_viewer(torch, model, cam, device):
     return dict(serve_ms=t_serve * 1e3, launches=launches, bytes_equal=equal)
 
 
+def phase_determinism(torch, device, seed, scene, work, trained):
+    """The card's training repeats bit for bit: the phase-9 binocular step
+    from one state and the same shifts, once and 10 times, run twice each
+    (parameters, both Adam moments, the densification statistics and the
+    loss compared as int32 views), and phase 10's `cli train` run again
+    into another directory: its chkpnt60.npz and its logged losses equal
+    the first run's."""
+    from binocular3dgs_torch import cli
+
+    def steps(n):
+        step, state, cam, gt, aw, bg, cfg = train_setup(torch, seed, device)
+        gen = torch.Generator().manual_seed(seed)
+        losses = []
+        for i in range(n):
+            u, s = torch.rand(2, generator=gen).tolist()
+            trans = u * cfg.train.cam_trans_dist * (1.0 if s < 0.5 else -1.0)
+            state, m = step(state, cam, gt, aw, 2 + i, trans, bg)
+            losses.append(int((m.loss + m.disparity_loss).view(torch.int32)))
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in state_tensors(state).items()}, losses
+
+    res = {}
+    for n in (1, TRAIN_STEPS):
+        (a, la), (b, lb) = steps(n), steps(n)
+        unequal = differing_buffers(a, b)
+        res[f"steps_{n}"] = dict(buffers_differing=unequal, losses_equal=la == lb)
+        log(f"[15 determinism] {n} binocular step(s) of the phase-9 workload, run twice from "
+            f"one state: buffers differing {unequal}, losses equal {la == lb}")
+        check(not unequal and la == lb, f"{n} training steps differ between runs: {unequal}")
+
+    again = os.path.join(work, "trained_again")
+    argv = ["train", "-s", scene, "-m", again, "--eval", "--iterations", "60",
+            "--shift_cam_start", "20", "--densify_from_iter", "20",
+            "--densification_interval", "20", "--densify_grad_threshold", "1e-6",
+            "--test_iterations", "60", "--save_iterations", "60",
+            "--checkpoint_iterations", "60", "-q", "--device", device.type]
+    t0 = time.perf_counter()
+    check(cli.main(argv) == 0, "the second cli train failed")
+    t_again = time.perf_counter() - t0
+    first = np.load(os.path.join(trained, "chkpnt60.npz"))
+    second = np.load(os.path.join(again, "chkpnt60.npz"))
+    keys_differing = sorted(
+        k for k in set(first.files) | set(second.files)
+        if k not in first.files or k not in second.files or first[k].dtype != second[k].dtype
+        or first[k].shape != second[k].shape or first[k].tobytes() != second[k].tobytes())
+    logs = []
+    for d in (trained, again):
+        with open(os.path.join(d, "train_log.json")) as f:
+            logs.append([(e["iteration"], e["loss"], e["disparity_loss"], e["points"])
+                         for e in json.load(f)])
+    log(f"[15 determinism] cli train run again ({t_again:.2f} s): chkpnt60.npz arrays "
+        f"differing {keys_differing} of {len(first.files)}; logged (iteration, loss, "
+        f"disparity loss, points) equal {logs[0] == logs[1]}")
+    check(not keys_differing and logs[0] == logs[1],
+          f"two cli train runs differ: {keys_differing}")
+    res["cli_train"] = dict(arrays=len(first.files), arrays_differing=keys_differing,
+                            log_equal=logs[0] == logs[1], train_s=t_again)
+    return res
+
+
+# dense init (phase 16): LLFF's image size and protocol (orchestrate.PROTOCOLS["LLFF"])
+LLFF_W, LLFF_H, LLFF_VIEWS = 4032, 3024, 9
+INIT_GAUSSIANS = 200_000
+INIT_ARC = 0.05  # rad either side of the optical axis
+
+
+def init_gaussians(seed, n=INIT_GAUSSIANS):
+    """A seeded, textured slab of opaque gaussians filling the arc cameras'
+    view at depths 4-9: the scene the dense init's views are rendered from."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack([rng.uniform(-4.5, 4.5, n), rng.uniform(-3.4, 3.4, n),
+                    rng.uniform(4, 9, n)], 1)
+    return dict(
+        xyz=xyz.astype(np.float32),
+        f_dc=(rng.normal(size=(n, 1, 3)) * 1.2).astype(np.float32),
+        f_rest=np.zeros((n, 3, 3), np.float32),
+        opacity=np.full((n, 1), 2.2, np.float32),
+        scaling=np.log(rng.uniform(0.008, 0.03, (n, 3))).astype(np.float32),
+        rotation=np.concatenate([np.ones((n, 1)), np.zeros((n, 3))], 1).astype(np.float32),
+    ), xyz
+
+
+def write_rendered_scene(torch, device, root, params, xyz, width, height, seed,
+                         n_sparse=5000):
+    """9 JPEG views at width x height rendered by the port from `params`
+    on the arc cameras, and a COLMAP model (PINHOLE, the arc poses, a
+    sparse cloud of `n_sparse` of the gaussians' centres)."""
+    from PIL import Image
+
+    from binocular3dgs_torch.config import RasterConfig
+    from binocular3dgs_torch.core.camera import make_camera
+    from binocular3dgs_torch.core.transforms import fov2focal
+    from binocular3dgs_torch.data import colmap
+    from binocular3dgs_torch.models.gaussians import from_numpy
+    from binocular3dgs_torch.ops.rasterize import render_tiled
+
+    os.makedirs(f"{root}/sparse/0", exist_ok=True)
+    os.makedirs(f"{root}/images", exist_ok=True)
+    n = len(xyz)
+    model = from_numpy(params, np.ones(n, bool), 1, 0, device=device)
+    fx, fy = fov2focal(FOVX, width), fov2focal(FOVY, height)
+    cams = {1: colmap.ColmapCamera(1, "PINHOLE", width, height,
+                                   np.array([fx, fy, width / 2, height / 2]))}
+    images, ppg, render_ms = {}, 16, []
+    for i, (R, T) in enumerate(arc_poses(LLFF_VIEWS, INIT_ARC), start=1):
+        cam = make_camera(R, T, FOVX, FOVY, width, height, device=device)
+        while True:
+            with torch.no_grad():
+                out, ms = timed_once(torch, lambda: render_tiled(
+                    cam, model, [0.5, 0.5, 0.5], raster=RasterConfig(pairs_per_gaussian=ppg),
+                    device=device))
+            if int(out.num_pairs) <= out.pair_capacity:
+                break
+            ppg *= 2
+        render_ms.append(ms)
+        rgb = (out.image.clamp(0, 1).permute(1, 2, 0) * 255).round().to(torch.uint8)
+        Image.fromarray(rgb.cpu().numpy()).save(f"{root}/images/im_{i:02d}.jpg", quality=95)
+        images[i] = colmap.ColmapImage(i, colmap.rotmat2qvec(R.T), T, 1, f"im_{i:02d}.jpg",
+                                       np.zeros((0, 2)), np.zeros(0, dtype=np.int64))
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(n, n_sparse, replace=False)
+    colmap.write_cameras_binary(f"{root}/sparse/0/cameras.bin", cams)
+    colmap.write_images_binary(f"{root}/sparse/0/images.bin", images)
+    colmap.write_points3d_binary(f"{root}/sparse/0/points3D.bin", xyz[pick],
+                                 rng.integers(0, 255, (n_sparse, 3)), np.zeros((n_sparse, 1)))
+    return dict(render_ms=render_ms, pairs_per_gaussian=ppg)
+
+
+class InitProbe:
+    """Wraps the dense init's stages while a triangulate runs: host time of
+    the scene load (with the resize), of `triangulate_pairs` and of each
+    matcher call, CUDA-event time of each Farneback flow, the DLT's inputs
+    and outputs, the growth's time, iterations and point counts, and the
+    devices the flows and the scorer ran on."""
+
+    def __init__(self, torch):
+        from binocular3dgs_torch.init import geometry, matchers, pipeline
+
+        self.torch, self.mods = torch, (geometry, matchers, pipeline)
+        self.t = dict(load_s=[], pairs_s=[], match_s=[], growth_s=[])
+        self.flow_ms, self.dlt, self.growth, self.devices = [], [], [], set()
+        self.scene = None
+
+    def _host(self, key, fn):
+        def wrapped(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.t[key].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        geometry, matchers, pipeline = self.mods
+        torch, probe = self.torch, self
+        self.saved = [(geometry, "triangulate_points_dlt"),
+                      (matchers, "calc_optical_flow_farneback"),
+                      (matchers.FarnebackMatcher, "get_matches_and_confidence"),
+                      (pipeline, "load_scene_for_init"), (pipeline, "triangulate_pairs"),
+                      (pipeline, "grow_points_llff"), (pipeline, "_make_candidate_scorer")]
+        self.saved = [(o, n, getattr(o, n)) for o, n in self.saved]
+        orig = {n: f for _, n, f in self.saved}
+
+        def dlt(P0, P1, uv0, uv1):
+            pts = orig["triangulate_points_dlt"](P0, P1, uv0, uv1)
+            probe.dlt.append((P0, P1, uv0, uv1, pts))
+            return pts
+
+        def flow(a, b, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = orig["calc_optical_flow_farneback"](a, b, **k)
+            e.record()
+            probe.flow_ms.append((s, e))
+            probe.devices.add(("flow", out.device.type))
+            return out
+
+        def grow(points, colors, images, K, c2ws, train_indices, cfg, *a, **k):
+            out = probe._host("growth_s", orig["grow_points_llff"])(
+                points, colors, images, K, c2ws, train_indices, cfg, *a, **k)
+            probe.growth.append((np.array(points), len(out[0]), cfg.growth_iterations))
+            return out
+
+        def load(*a, **k):
+            probe.scene = probe._host("load_s", orig["load_scene_for_init"])(*a, **k)
+            return probe.scene
+
+        def scorer(h):
+            score = orig["_make_candidate_scorer"](h)
+
+            def run(cand, *a):
+                probe.devices.add(("scorer", cand.device.type))
+                return score(cand, *a)
+            return run
+
+        geometry.triangulate_points_dlt = dlt
+        matchers.calc_optical_flow_farneback = flow
+        matchers.FarnebackMatcher.get_matches_and_confidence = self._host(
+            "match_s", orig["get_matches_and_confidence"])
+        pipeline.load_scene_for_init = load
+        pipeline.triangulate_pairs = self._host("pairs_s", orig["triangulate_pairs"])
+        pipeline.grow_points_llff = grow
+        pipeline._make_candidate_scorer = scorer
+        return self
+
+    def __exit__(self, *exc):
+        for o, n, f in self.saved:
+            setattr(o, n, f)
+
+
+def reprojection_errors(dlt_calls, thresh, W, H):
+    """As `triangulate_pairs` filters each DLT call's points: the
+    reference-view reprojection errors of the points it keeps (both views'
+    errors under `thresh`, both projections inside the image), and the share
+    of the DLT's points kept."""
+    kept_err, n_all = [], 0
+    for P0, P1, uv0, uv1, pts in dlt_calls:
+        errs, inside = [], []
+        for P, uv in ((P0, uv0), (P1, uv1)):
+            pi = np.concatenate([pts, np.ones((len(pts), 1))], 1) @ P.T
+            proj = pi[:, :2] / pi[:, 2:3]
+            errs.append(np.linalg.norm(proj - uv, axis=-1))
+            inside.append((proj[:, 0] >= 0) & (proj[:, 0] <= W - 1) & (proj[:, 1] >= 0)
+                          & (proj[:, 1] <= H - 1))
+        keep = (errs[0] < thresh) & (errs[1] < thresh) & inside[0] & inside[1]
+        kept_err.append(errs[0][keep])
+        n_all += len(pts)
+    kept = np.concatenate(kept_err) if kept_err else np.zeros(0)
+    return kept, len(kept) / max(n_all, 1)
+
+
+def growth_busy(torch, device, points, colors, images, K, c2ws, train_idx, iterations=100):
+    """Kernel ms per growth iteration from torch.profiler over `iterations`
+    iterations from the pre-growth cloud, and the profiled wall ms per
+    iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from binocular3dgs_torch.init.pipeline import TriangulateConfig, grow_points_llff
+
+    cfg = TriangulateConfig(growth_iterations=iterations)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grow_points_llff(points, colors, images, K, c2ws, train_idx, cfg, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    return kernel_us / 1e3 / iterations, wall * 1e3 / iterations
+
+
+def phase_dense_init(torch, device, seed, work):
+    """`cli triangulate --resolution 2` of a 9-view 4032x3024 JPEG scene
+    rendered by the port (LLFF's image size; its protocol's resolution, 3
+    train views, 6 ordered pairs, 12 flows at 504x378, 1000 growth
+    iterations of 100 x 200 candidates), then `run_scene` with the LLFF
+    protocol cut to 60 iterations: triangulate, train at -r 2, render and
+    metrics, each a `binocular3dgs_torch.cli` process on the card."""
+    import dataclasses
+
+    from binocular3dgs_torch import cli, orchestrate
+    from binocular3dgs_torch.data.ply import fetch_point_cloud
+    from binocular3dgs_torch.init.pipeline import TriangulateConfig
+
+    params, xyz = init_gaussians(seed)
+    data = os.path.join(work, "llff")
+    scene = os.path.join(data, "slab")
+    t0 = time.perf_counter()
+    made = write_rendered_scene(torch, device, scene, params, xyz, LLFF_W, LLFF_H, seed)
+    t_scene = time.perf_counter() - t0
+    log(f"[16 dense init] scene: {LLFF_VIEWS} views {LLFF_W}x{LLFF_H} JPEG of "
+        f"{INIT_GAUSSIANS} gaussians in {t_scene:.1f} s (render "
+        f"{float(np.median(made['render_ms'])):.1f} ms a view, pairs_per_gaussian "
+        f"{made['pairs_per_gaussian']})")
+
+    out = os.path.join(work, "kp")
+    launch_counts(reset=True)
+    with InitProbe(torch) as probe:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["triangulate", "-s", scene, "--output_path", out, "--resolution", "2",
+                       "--device", device.type])
+        torch.cuda.synchronize()
+        t_tri = time.perf_counter() - t0
+    counts = launch_counts()
+    check(rc == 0, "cli triangulate failed")
+    cfg = TriangulateConfig()
+    ply = fetch_point_cloud(os.path.join(out, "slab_keypoints_to_3d.ply"))
+    flow_ms = [s.elapsed_time(e) for s, e in probe.flow_ms]
+    (pre, n_after, iters), = probe.growth
+    kept_err, kept_share = reprojection_errors(probe.dlt, cfg.reproj_thresh, LLFF_W // 2,
+                                               LLFF_H // 2)
+    t = {k: sum(v) for k, v in probe.t.items()}
+    dlt_filters_s = t["pairs_s"] - t["match_s"]
+    growth_ms = t["growth_s"] * 1e3 / iters
+
+    # the card's busy share over the growth: kernel time per iteration from
+    # the profiler over 100 iterations from the same pre-growth cloud
+    from binocular3dgs_torch.init.pipeline import select_train_indices
+
+    images, K, c2ws, _ = probe.scene
+    train_idx = select_train_indices(len(images), "LLFF", 3)
+    pre_colors = np.full((len(pre), 3), 128, np.uint8)
+    kernel_ms, prof_ms = growth_busy(torch, device, pre, pre_colors, images, K, c2ws,
+                                     train_idx)
+    med_err = float(np.median(kept_err)) if len(kept_err) else float("inf")
+    res = dict(
+        triangulate_s=t_tri, load_resize_s=t["load_s"], match_s=t["match_s"],
+        farneback_ms=flow_ms, flows=len(flow_ms), dlt_filters_s=dlt_filters_s,
+        growth_s=t["growth_s"], growth_iterations=iters, growth_ms_per_iteration=growth_ms,
+        growth_kernel_ms_per_iteration=kernel_ms, growth_profiled_ms_per_iteration=prof_ms,
+        growth_busy_share=kernel_ms / growth_ms, points_before_growth=len(pre),
+        points_after_growth=n_after, ply_points=len(ply.points),
+        reprojection_median_px=med_err, dlt_kept_share=kept_share,
+        devices=sorted(probe.devices), launches=counts, scene_s=t_scene, **made)
+    log(f"[16 dense init] cli triangulate --resolution 2: {t_tri:.2f} s (host clock); load and "
+        f"resize {t['load_s']:.2f} s; {len(flow_ms)} Farneback flows at {LLFF_W // 8}x{LLFF_H // 8}, "
+        f"{float(np.median(flow_ms)):.2f} ms median ({min(flow_ms):.2f}-{max(flow_ms):.2f}, CUDA "
+        f"events); matching {t['match_s']:.2f} s; DLT and filters {dlt_filters_s:.2f} s; growth "
+        f"{iters} iterations {t['growth_s']:.2f} s, {growth_ms:.3f} ms an iteration, kernels "
+        f"{kernel_ms:.3f} ms an iteration (profiler, {prof_ms:.3f} ms profiled), busy share "
+        f"{kernel_ms / growth_ms:.3f}; points {len(pre)} -> {n_after} ({len(ply.points)} in the "
+        f"PLY); median reference-view reprojection error of the pre-growth points {med_err:.4f} "
+        f"px ({kept_share:.3f} of the DLT points kept); devices {sorted(probe.devices)}; "
+        f"kernel launches {counts}")
+    check(len(flow_ms) == 12, f"{len(flow_ms)} flows, expected 12 (6 ordered pairs, both ways)")
+    check(len(ply.points) > 0, "the dense PLY has no points")
+    check(n_after > len(pre) and len(ply.points) == n_after, f"growth {len(pre)} -> {n_after}")
+    check(med_err < cfg.reproj_thresh, f"median reprojection error {med_err} px")
+    check(probe.devices == {("flow", device.type), ("scorer", device.type)},
+          f"dense init ran on {probe.devices}")
+
+    # run_scene: the LLFF protocol cut to 60 iterations, with the working
+    # directory and out_path such that train finds the dense PLY where
+    # triangulate writes it (orchestrate.py's docstring)
+    proto = dataclasses.replace(orchestrate.PROTOCOLS["LLFF"], scenes=["slab"], iterations=60)
+    calls = []
+    original_cli = orchestrate._cli
+
+    def recorded(args, env=None):
+        calls.append([str(a) for a in args])
+        return original_cli(args, env)
+
+    cwd = os.getcwd()
+    pythonpath = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = REPO + (os.pathsep + pythonpath if pythonpath else "")
+    orchestrate._cli = recorded
+    os.chdir(data)
+    try:
+        t0 = time.perf_counter()
+        ok = orchestrate.run_scene("slab", data, ".", proto, device=device.type)
+        t_run = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        orchestrate._cli = original_cli
+        if pythonpath is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = pythonpath
+    dense = os.path.join(data, "keypoints_to_3d", "LLFF", "slab_keypoints_to_3d.ply")
+    model = os.path.join(data, "slab_3views")
+    with open(dense, "rb") as f, open(os.path.join(model, "input.ply"), "rb") as g:
+        loaded_dense = f.read() == g.read()
+    with open(os.path.join(model, "results.json")) as f:
+        metrics = json.load(f)["ours_60"]
+    stages = [c[0] for c in calls]
+    on_card = all(c[c.index("--device") + 1] == device.type for c in calls)
+    res["run_scene"] = dict(ok=ok, wall_s=t_run, stages=stages, train_loaded_dense_ply=loaded_dense,
+                            dense_points=len(fetch_point_cloud(dense).points), metrics=metrics,
+                            device_cuda=on_card)
+    log(f"[16 dense init] run_scene (LLFF protocol, 60 iterations) {t_run:.1f} s (host clock, 4 "
+        f"processes): ok {ok}, stages {stages}, train loaded the dense PLY "
+        f"({res['run_scene']['dense_points']} points) {loaded_dense}, --device {device.type} in "
+        f"every stage {on_card}; metrics {metrics}")
+    check(ok and stages == ["triangulate", "train", "render", "metrics"], f"run_scene {stages}")
+    check(loaded_dense, "train did not load the dense PLY run_scene wrote")
+    check(on_card, f"a stage ran without --device cuda: {calls}")
+    check(np.isfinite(metrics["PSNR"]) and np.isfinite(metrics["SSIM"]), f"metrics {metrics}")
+    return res, params, xyz
+
+
+def nearest_share(torch, device, a, b, tol):
+    """Share of the points of `a` (N, 3) with a point of `b` within `tol`."""
+    A = torch.as_tensor(a, device=device)
+    B = torch.as_tensor(b, device=device)
+    near = [torch.cdist(A[i:i + 4096], B).amin(1) <= tol for i in range(0, len(A), 4096)]
+    return float(torch.cat(near).double().mean())
+
+
+def phase_init_card_vs_cpu(torch, device, seed, work, params, xyz):
+    """The dense init on the card against the CPU, on a 4x smaller copy of
+    phase 16's scene (1008x756; matching at 126x94): the Farneback flows of
+    the 6 ordered pairs, the pre-growth point sets, and the scores of the
+    first growth iterations from the card's pre-growth cloud."""
+    from binocular3dgs_torch.init import pipeline
+    from binocular3dgs_torch.init.farneback import calc_optical_flow_farneback
+    from binocular3dgs_torch.init.matchers import FarnebackMatcher
+
+    scene = os.path.join(work, "llff_small", "slab")
+    write_rendered_scene(torch, device, scene, params, xyz, LLFF_W // 4, LLFF_H // 4, seed)
+    cfg = pipeline.TriangulateConfig(growth_iterations=0)
+    devices = {"card": device, "cpu": torch.device("cpu")}
+    loaded = {k: pipeline.load_scene_for_init(scene, "images", 2, d) for k, d in devices.items()}
+    images = loaded["card"][0]
+    same_images = all(np.array_equal(a, b) for a, b in zip(images, loaded["cpu"][0]))
+    _, K, c2ws, _ = loaded["card"]
+    idx = pipeline.select_train_indices(len(images), "LLFF", 3)
+    matchers = {k: FarnebackMatcher(device=d) for k, d in devices.items()}
+    size = (images[0].shape[1] // 4, images[0].shape[0] // 4)
+    epe = []
+    for r in idx:
+        for s in idx:
+            if r == s:
+                continue
+            flows = []
+            for d, m in matchers.items():
+                a, b = m._gray(images[r], size), m._gray(images[s], size)
+                flows.append(calc_optical_flow_farneback(a, b).cpu())
+            epe.append((flows[0] - flows[1]).norm(dim=-1).flatten())
+    epe = torch.cat(epe)
+    epe_med, epe_p99, epe_max = (float(epe.median()), float(torch.quantile(epe, 0.99)),
+                                 float(epe.max()))
+    pts = {k: pipeline.triangulate_pairs(images, K, c2ws, idx, m, cfg)[0]
+           for k, m in matchers.items()}
+    tol = 1e-3
+    share = min(nearest_share(torch, device, pts["card"], pts["cpu"], tol),
+                nearest_share(torch, device, pts["cpu"], pts["card"], tol))
+
+    # growth scores: the same candidates scored on both devices
+    scores = {}
+    original = pipeline._make_candidate_scorer
+    for k, d in devices.items():
+        rec = scores[k] = []
+
+        def make(h, rec=rec):
+            score = original(h)
+
+            def run(*a):
+                out = score(*a)
+                rec.append(out.cpu())
+                return out
+            return run
+
+        pipeline._make_candidate_scorer = make
+        try:
+            pipeline.grow_points_llff(pts["card"], np.full((len(pts["card"]), 3), 128, np.uint8),
+                                      images, K, c2ws, idx,
+                                      pipeline.TriangulateConfig(growth_iterations=5), device=d)
+        finally:
+            pipeline._make_candidate_scorer = original
+    compared, score_err = 0, 0.0
+    for a, b in zip(scores["card"], scores["cpu"]):
+        score_err = max(score_err, float((a - b).abs().max()))
+        compared += 1
+        if not torch.equal(a >= 0.95, b >= 0.95):
+            break  # a decision at the threshold differs: later candidates differ
+    log(f"[17 init card vs CPU] {LLFF_W // 4}x{LLFF_H // 4} scene, resolution 2: images equal "
+        f"{same_images}; "
+        f"Farneback end-point difference over the 6 ordered pairs at {size[0]}x{size[1]}: median "
+        f"{epe_med:.3g}, 99th percentile {epe_p99:.3g}, max {epe_max:.3g} px (tol median 0.01, "
+        f"p99 0.1); pre-growth points {len(pts['card'])} (card) / {len(pts['cpu'])} (CPU), share "
+        f"with a partner within {tol} {share:.5f} (tol 0.99); growth scores of {compared} "
+        f"iterations x {len(scores['card'][0])} candidates within {score_err:.3g} (tol 1e-5)")
+    check(same_images, "the card's resized images differ from the CPU's")
+    check(epe_med <= 0.01 and epe_p99 <= 0.1, f"card and CPU flows differ: {epe_med}, {epe_p99}")
+    check(share >= 0.99 and abs(len(pts["card"]) - len(pts["cpu"])) <= 0.01 * len(pts["cpu"]),
+          f"card and CPU point sets differ: {share}")
+    check(compared >= 1 and score_err <= 1e-5, f"growth scores differ by {score_err}")
+    return dict(images_equal=same_images, flow_epe_median=epe_med, flow_epe_p99=epe_p99,
+                flow_epe_max=epe_max, points_card=len(pts["card"]), points_cpu=len(pts["cpu"]),
+                point_share_within_tol=share, point_tol=tol, growth_iterations_compared=compared,
+                growth_score_max_diff=score_err)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1359,6 +1853,10 @@ def main():
         spiral = phase_spiral(torch, trained)
         lpips = phase_lpips(torch, args.seed, work, os.path.join(work, "model"))
         viewer = phase_viewer(torch, model, cam, device)
+        determinism = phase_determinism(torch, device, args.seed, scene, work, trained)
+        dense_init, init_params, init_xyz = phase_dense_init(torch, device, args.seed, work)
+        init_card_vs_cpu = phase_init_card_vs_cpu(torch, device, args.seed, work, init_params,
+                                                  init_xyz)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     b1["launches_spiral"] = spiral["launches"]
@@ -1368,7 +1866,9 @@ def main():
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [b1, b2, w1, w2], "main_path": main_path, "train": train,
                       "cli": cli_res, "cli_train": cli_train, "resume": resume,
-                      "spiral": spiral, "lpips": lpips, "viewer": viewer, "card": smi}))
+                      "spiral": spiral, "lpips": lpips, "viewer": viewer,
+                      "determinism": determinism, "dense_init": dense_init,
+                      "init_card_vs_cpu": init_card_vs_cpu, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

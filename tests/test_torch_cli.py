@@ -1,8 +1,9 @@
 """The port's CLI (render + metrics + aggregate, in-process, --device cpu)
 against the JAX CLI on the same tiny fabricated COLMAP scene and trained
 model; `cli train` is held in test_torch_train.py and
-test_torch_checkpoint.py, `cli spiral` in test_torch_spiral.py and
-`metrics --lpips_weights` in test_torch_lpips.py."""
+test_torch_checkpoint.py, `cli spiral` in test_torch_spiral.py,
+`metrics --lpips_weights` in test_torch_lpips.py, `cli triangulate` in
+test_torch_init_pipeline.py and `cli run` in test_torch_orchestrate.py."""
 
 import json
 import os
@@ -106,18 +107,6 @@ def test_aggregate_and_config(rendered, capsys):
     assert "ours_7" in json.loads(capsys.readouterr().out)
     cfg = load_config(os.path.join(rendered["port"], "cfg_args.json"))  # written by the JAX package
     assert cfg.model.eval and cfg.raster == RasterConfig()
-
-
-UNPORTED = {
-    "triangulate": ["triangulate", "-s", "x"],
-    "run": ["run", "-s", "x"],
-}
-
-
-@pytest.mark.parametrize("cmd", sorted(UNPORTED))
-def test_unported_commands_fail(cmd, capsys):
-    assert cli.main(UNPORTED[cmd]) != 0
-    assert "not yet ported" in capsys.readouterr().out
 
 
 def test_render_reads_settings_from_cfg_args_alone(tmp_path):

@@ -1,7 +1,9 @@
 """Tests that need a CUDA card: the hand-written kernels (blend forward B1,
 blend backward B2, warp forward W1 and backward W2) against their plain
 PyTorch versions, and their launch counters around a render and a training
-step. They skip without a card.
+step; a training step that repeats bit for bit; the dense init's Farneback
+flow and growth scorer on the card against the CPU. They skip without a
+card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -233,3 +235,102 @@ def test_train_step_counts_launches(cuda_device):
                                                           warp.warp_backward_launches]
     assert [a - b for a, b in zip(after, before)] == [2, 2, 1, 1]
     assert torch.isfinite(metrics.loss) and float(metrics.disparity_loss) > 0
+
+
+def state_bits(state):
+    """Every float buffer of a TrainState as int32 views (NaNs compare)."""
+    trees = (state.model.params, state.adam_m, state.adam_v)
+    out = [getattr(t, n).view(torch.int32) for t in trees for n in
+           ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")]
+    return out + [getattr(state, n).view(torch.int32)
+                  for n in ("grad_accum", "denom", "max_radii2d")]
+
+
+@pytest.mark.cuda
+def test_train_step_repeats_bit_for_bit(cuda_device):
+    """Two runs of 4 binocular steps from one state: every parameter, both
+    Adam moments, the densification statistics and the losses equal bit
+    for bit (the record gathers' fixed-order backward, cuDNN's deterministic
+    convolutions, W2's fixed-point sum)."""
+    runs = []
+    for _ in range(2):
+        model, cam = scene(7, 3000, 256, 192, cuda_device)
+        state = init_train_state(model)
+        step = make_train_step(
+            lambda c, m, bg, mean2d_carrier=None: render_tiled(
+                c, m, bg, device=cuda_device, mean2d_carrier=mean2d_carrier),
+            Config(), 1.0, binocular=True, use_alpha_weight=False)
+        gt = torch.rand(3, 192, 256, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+        aw = torch.zeros(192, 256, device=cuda_device)
+        losses = []
+        for it, trans in zip(range(2, 6), (0.2, -0.3, 0.1, -0.05)):
+            state, m = step(state, cam, gt, aw, it, trans, torch.zeros(3, device=cuda_device))
+            losses.append((m.loss + m.disparity_loss).view(torch.int32).item())
+        runs.append((state_bits(state), losses))
+    (a, la), (b, lb) = runs
+    assert la == lb
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_gather_segment_sum_repeats_and_matches_cpu(cuda_device):
+    from binocular3dgs_torch.ops.rasterize import segment_sum_columns
+
+    g = torch.Generator().manual_seed(5)
+    d = torch.randn(10, 200_000, generator=g)
+    idx = torch.randint(0, 3000, (200_000,), generator=g)
+    want = segment_sum_columns(d, idx, 3000)
+    first = segment_sum_columns(d.to(cuda_device), idx.to(cuda_device), 3000)
+    for _ in range(3):
+        again = segment_sum_columns(d.to(cuda_device), idx.to(cuda_device), 3000)
+        assert torch.equal(bits(again), bits(first))
+    assert ((first.cpu() - want).abs() <= 1e-5 * want.abs().amax(1, keepdim=True)).all()
+
+
+def textured_pair(h, w, seed=0, shift=5):
+    """Two grey uint8 images of blobs, the second shifted right by `shift`."""
+    from binocular3dgs_torch.init.image_io import resize_linear_f32
+
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand(1, h // 6, (w + shift) // 6, generator=g)
+    field = resize_linear_f32(coarse, (w + shift, h))[0]
+    img = ((field > 0.5).float() * 180 + 40).to(torch.uint8)
+    return img[:, shift:].contiguous(), img[:, :w].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(120, 160), (378, 504)])
+def test_farneback_card_matches_cpu(cuda_device, h, w):
+    """The flow on the card against the CPU: median end-point difference
+    <= 0.01 px, 99th percentile <= 0.1 px (the tolerance held against
+    OpenCV on the CPU)."""
+    from binocular3dgs_torch.init.farneback import calc_optical_flow_farneback
+
+    a, b = textured_pair(h, w)
+    want = calc_optical_flow_farneback(a, b)
+    got = calc_optical_flow_farneback(a.to(cuda_device), b.to(cuda_device)).cpu()
+    epe = (got - want).norm(dim=-1)
+    assert want[..., 0].abs().median() > 1.0
+    assert epe.median() <= 0.01 and torch.quantile(epe.flatten(), 0.99) <= 0.1
+
+
+@pytest.mark.cuda
+def test_growth_scorer_card_matches_cpu(cuda_device):
+    """The growth scorer on 20,000 candidates (100 seeds x 200, the LLFF
+    growth's shape): scores within 1e-5 of the CPU's."""
+    from binocular3dgs_torch.init.pipeline import _make_candidate_scorer
+
+    g = torch.Generator().manual_seed(2)
+    img_a = torch.rand(189, 252, 3, generator=g)
+    img_b = torch.roll(img_a, 3, dims=1)
+    cand = torch.randn(20_000, 3, generator=g) * torch.tensor([1.0, 0.8, 0.5]) \
+        + torch.tensor([0.0, 0.0, 5.0])
+    w2c_a, w2c_b = torch.eye(4), torch.eye(4)
+    w2c_b[0, 3] = 0.05
+    focal, center = torch.tensor([200.0, 200.0]), torch.tensor([126.0, 94.5])
+    args = (cand, img_a, img_b, w2c_a, w2c_b, focal, center)
+    score = _make_candidate_scorer(5)
+    want = score(*args)
+    got = score(*(x.to(cuda_device) for x in args)).cpu()
+    assert (want > 0.5).any()
+    assert (got - want).abs().max() <= 1e-5

@@ -1,6 +1,7 @@
 """The port stands alone: no file of binocular3dgs_torch/, nor chip_smoke.py,
-imports jax, flax or binocular3dgs_tpu (checked on the source, so a lazy
-import inside a function is caught too)."""
+imports jax, flax or binocular3dgs_tpu, nor cv2 or scipy, which the card's
+machine lacks (checked on the source, so a lazy import inside a function is
+caught too)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "binocular3dgs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "binocular3dgs_tpu", "cv2", "scipy")
 FILES = sorted((REPO / "binocular3dgs_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -28,7 +29,10 @@ def test_scans_the_port():
     names = {str(p.relative_to(REPO)) for p in FILES}
     for module in ("ops/warp.py", "ops/knn.py", "models/densify.py", "train/state.py",
                    "train/step.py", "train/loop.py", "render/spiral.py", "render/pose_utils.py",
-                   "render/network_gui.py", "eval/lpips.py", "quality_run.py"):
+                   "render/network_gui.py", "eval/lpips.py", "quality_run.py",
+                   "init/image_io.py", "init/geometry.py", "init/correlation.py",
+                   "init/farneback.py", "init/matchers.py", "init/pipeline.py",
+                   "orchestrate.py"):
         assert f"binocular3dgs_torch/{module}" in names, module
 
 
