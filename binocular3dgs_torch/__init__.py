@@ -12,8 +12,8 @@ training path: the binocular train step (two renders, the disparity warp,
 losses, autograd through the blend and warp kernels, masked Adam),
 densification and the trainer behind `cli train`, with checkpoints that
 interchange with the JAX package's and a profiler trace; and the dense init
-behind `cli triangulate` (its own Farneback flow, `init/`) and the per-scene
-pipeline behind `cli run` (`orchestrate.py`).
+behind `cli triangulate` (its own Farneback flow and PDCNet+, `init/`) and
+the per-scene pipeline behind `cli run` (`orchestrate.py`).
 """
 
 from __future__ import annotations

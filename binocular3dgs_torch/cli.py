@@ -19,10 +19,10 @@ package) and traces its first iterations into `--profile_dir`; `render` and
 (their `--eval`, `-r`, `-i`, `-w` and `--sh_degree` are accepted and
 ignored; `-m` and `-s` apply). `train` leaves out the TPU-only `--backend`,
 `--max_pairs_per_tile` and `--raster_chunk`. `triangulate` has the
-Farneback matcher; `--matcher pdcnet` (PDCNet+, not ported yet) prints so
-and exits non-zero. `run` (orchestrate.py) drives triangulate, train,
-render and metrics per scene, each a `binocular3dgs_torch.cli` process on
-`--device`.
+Farneback matcher and, with `--matcher pdcnet --pdcnet_weights <.pth or
+.npz>`, PDCNet+ (without weights it raises, as the JAX CLI does). `run`
+(orchestrate.py) drives triangulate, train, render and metrics per scene,
+each a `binocular3dgs_torch.cli` process on `--device`.
 """
 
 from __future__ import annotations
@@ -374,15 +374,10 @@ def cmd_triangulate(argv):
     from .init.pipeline import TriangulateConfig, triangulate_scene
 
     device = resolve_device(args.device)
+    kwargs = {"device": device}
     if args.matcher.lower().startswith("pdcnet"):
-        kwargs = {"weights_path": args.pdcnet_weights}
-    else:
-        kwargs = {"device": device}
-    try:
-        matcher = select_matcher(args.matcher, **kwargs)
-    except NotImplementedError as e:
-        print(e)
-        return 2
+        kwargs["weights_path"] = args.pdcnet_weights
+    matcher = select_matcher(args.matcher, **kwargs)
     cfg = TriangulateConfig(
         dataset_name=args.dataset_name,
         n_views=args.n_views,

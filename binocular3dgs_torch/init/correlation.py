@@ -7,9 +7,9 @@ local_correlation/correlation.py:15-241`), channels-last like it:
     out[b, y, x, d] = mean_c( ref[b, y, x, c] * query[b, y+dy, x+dx, c] )
 
 for displacements (dx, dy) in [-md, md]^2, zero outside the image, channel
-d = (dy + md) * (2 md + 1) + (dx + md). PDCNet+ (not ported yet) is their
-caller; they run at inference, and as plain torch they are differentiable
-anyway.
+d = (dy + md) * (2 md + 1) + (dx + md). PDCNet+ (`init/pdcnet/`: the
+LocalGOCor optimizer and the uncertainty decoders' input) is their caller;
+they run at inference, and as plain torch they are differentiable anyway.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ confidence):
     float64). Matches of equal confidence keep their grid order (a stable
     sort), where numpy's argsort leaves ties in an order of its own, so
     the rows of the two packages agree as sets, not index by index.
-  * `PDCNetPlusMatcher` — not ported yet: constructing it raises.
+  * `PDCNetPlusMatcher` — PDCNet+ (`init/pdcnet/`) from a checkpoint
+    (a reference `.pth`, or the npz both packages read), on `device`.
 """
 
 from __future__ import annotations
@@ -98,14 +99,33 @@ class FarnebackMatcher:
 
 
 class PDCNetPlusMatcher:
-    """PDCNet+ (`binocular3dgs_tpu/init/pdcnet/`): not ported to the port yet."""
+    """PDCNet+ (`init/pdcnet/`); needs a checkpoint (reference .pth, or
+    the npz of `python -m binocular3dgs_torch.init.pdcnet.convert`)."""
 
-    def __init__(self, weights_path: str | None = None, **inference_parameters):
-        raise NotImplementedError(
-            "the PDCNet+ matcher is not yet ported to binocular3dgs_torch; use the "
-            "farneback matcher (--matcher farneback), or the JAX package's "
-            "`python -m binocular3dgs_tpu.cli triangulate --matcher pdcnet`"
-        )
+    def __init__(self, weights_path: str | None = None, device: str | torch.device = "cuda",
+                 **inference_parameters):
+        if weights_path is None:
+            raise ValueError(
+                "PDCNet+ inference requires a checkpoint (reference "
+                "pre_trained_models/PDCNet_plus_megadepth.pth or a converted "
+                ".npz); use FarnebackMatcher for a weight-free classical "
+                "fallback."
+            )
+        from .pdcnet import PDCNetPlus
+
+        self.net = PDCNetPlus(weights_path, inference_parameters or None, device=device)
+
+    def get_matches_and_confidence(self, ref_image, src_image) -> dict:
+        """The matches in the pipeline's convention, FarnebackMatcher's:
+        kp_source in ref_image, kp_target in src_image. PDCNetPlus returns
+        them the other way round (the reference's base_pdcnet names:
+        kp_target in the flow's frame, ref_image), so they are exchanged
+        here. The JAX package passes them on unexchanged, and its
+        `triangulate_pairs` then pairs the source view's points with the
+        reference camera (ROADMAP C; tests/test_torch_pdcnet_inference.py)."""
+        pred = self.net.get_matches_and_confidence(ref_image, src_image)
+        return {"kp_source": pred["kp_target"], "kp_target": pred["kp_source"],
+                "confidence_value": pred["confidence_value"]}
 
 
 def select_matcher(name: str = "farneback", **kwargs):

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's serving path, its training path and its dense init at
-full width and fails (non-zero exit) if any phase fails:
+Drives the port's serving path, its training path and its dense init
+(with the Farneback matcher and with PDCNet+) at full width and fails
+(non-zero exit) if any phase fails:
 
   1. environment: the card (nvidia-smi name and power limit), torch/CUDA
      versions, TF32 off for matmuls and cuDNN
@@ -76,6 +77,21 @@ full width and fails (non-zero exit) if any phase fails:
      scene: resized images equal, Farneback end-point difference median
      <= 0.01 px and 99th percentile <= 0.1 px, pre-growth point sets equal
      within 1e-3 on >= 99% of points, growth scores within 1e-5
+ 18. PDCNet+ at LLFF's matching size: random weights from --seed as a .pth
+     and as the npz both packages read (equal tensors); `_direct` on one
+     ordered pair of phase 16's views at 2016x1512 (median of 5 after 1
+     warm-up, CUDA events; stage spans of both VGG pyramids, GlobalGOCor,
+     LocalGOCor per level, decoders and uncertainty; the profiler's kernels,
+     busy share and the local correlation's share; peak memory; the image
+     pyramid with cuDNN's deterministic algorithms and without);
+     `get_matches_and_confidence` in mode h with cyclic consistency; `cli
+     triangulate --matcher pdcnet --pdcnet_weights <npz> --resolution 2`
+     on phase 16's scene, the network and the RANSAC on the card only
+ 19. PDCNet+ on the card against the CPU: mode d with cyclic consistency at
+     256x256 (flow, log-variances, weights, P_R, cyclic error within 1e-3
+     of each map's largest value); the RANSAC homography of a 100,000-match
+     set of a known H at 2016x1512 on both, each within 1e-2 px of it at
+     the corners; the perspective warp of a 2016x1512 view within 1e-3
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -1452,16 +1468,19 @@ def write_rendered_scene(torch, device, root, params, xyz, width, height, seed,
 class InitProbe:
     """Wraps the dense init's stages while a triangulate runs: host time of
     the scene load (with the resize), of `triangulate_pairs` and of each
-    matcher call, CUDA-event time of each Farneback flow, the DLT's inputs
-    and outputs, the growth's time, iterations and point counts, and the
-    devices the flows and the scorer ran on."""
+    matcher call (and its number of matches), CUDA-event time of each
+    Farneback flow and each PDCNet+ network pass, the DLT's inputs and
+    outputs, the growth's time, iterations and point counts, and the
+    devices the flows, the network, the RANSAC and the scorer ran on."""
 
     def __init__(self, torch):
         from binocular3dgs_torch.init import geometry, matchers, pipeline
+        from binocular3dgs_torch.init.pdcnet import inference
 
-        self.torch, self.mods = torch, (geometry, matchers, pipeline)
+        self.torch, self.mods = torch, (geometry, matchers, pipeline, inference)
         self.t = dict(load_s=[], pairs_s=[], match_s=[], growth_s=[])
         self.flow_ms, self.dlt, self.growth, self.devices = [], [], [], set()
+        self.net_ms, self.matches = [], []
         self.scene = None
 
     def _host(self, key, fn):
@@ -1474,12 +1493,29 @@ class InitProbe:
             return out
         return wrapped
 
+    def _events(self, store, tag, fn):
+        """fn timed by CUDA events into `store`, its first output's device
+        recorded under `tag`."""
+        torch, probe = self.torch, self
+
+        def wrapped(*a, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            store.append((s, e))
+            probe.devices.add((tag, (out[0] if isinstance(out, tuple) else out).device.type))
+            return out
+        return wrapped
+
     def __enter__(self):
-        geometry, matchers, pipeline = self.mods
+        geometry, matchers, pipeline, inference = self.mods
         torch, probe = self.torch, self
         self.saved = [(geometry, "triangulate_points_dlt"),
                       (matchers, "calc_optical_flow_farneback"),
                       (matchers.FarnebackMatcher, "get_matches_and_confidence"),
+                      (matchers.PDCNetPlusMatcher, "get_matches_and_confidence"),
+                      (inference.PDCNetPlus, "_forward"), (inference, "find_homography_ransac"),
                       (pipeline, "load_scene_for_init"), (pipeline, "triangulate_pairs"),
                       (pipeline, "grow_points_llff"), (pipeline, "_make_candidate_scorer")]
         self.saved = [(o, n, getattr(o, n)) for o, n in self.saved]
@@ -1490,14 +1526,16 @@ class InitProbe:
             probe.dlt.append((P0, P1, uv0, uv1, pts))
             return pts
 
-        def flow(a, b, **k):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = orig["calc_optical_flow_farneback"](a, b, **k)
-            e.record()
-            probe.flow_ms.append((s, e))
-            probe.devices.add(("flow", out.device.type))
-            return out
+        def matched(name):
+            def run(*a, **k):
+                out = orig[name](*a, **k)
+                probe.matches.append(len(out["kp_source"]))
+                return out
+            return probe._host("match_s", run)
+
+        def ransac(src, dst, *a, **k):
+            probe.devices.add(("ransac", torch.as_tensor(src).device.type))
+            return orig["find_homography_ransac"](src, dst, *a, **k)
 
         def grow(points, colors, images, K, c2ws, train_indices, cfg, *a, **k):
             out = probe._host("growth_s", orig["grow_points_llff"])(
@@ -1518,9 +1556,14 @@ class InitProbe:
             return run
 
         geometry.triangulate_points_dlt = dlt
-        matchers.calc_optical_flow_farneback = flow
-        matchers.FarnebackMatcher.get_matches_and_confidence = self._host(
-            "match_s", orig["get_matches_and_confidence"])
+        matchers.calc_optical_flow_farneback = self._events(
+            self.flow_ms, "flow", orig["calc_optical_flow_farneback"])
+        inference.PDCNetPlus._forward = self._events(self.net_ms, "network", orig["_forward"])
+        inference.find_homography_ransac = ransac
+        for cls, (o, n, f) in ((matchers.FarnebackMatcher, self.saved[2]),
+                               (matchers.PDCNetPlusMatcher, self.saved[3])):
+            orig[cls.__name__] = f
+            setattr(cls, n, matched(cls.__name__))
         pipeline.load_scene_for_init = load
         pipeline.triangulate_pairs = self._host("pairs_s", orig["triangulate_pairs"])
         pipeline.grow_points_llff = grow
@@ -1797,6 +1840,399 @@ def phase_init_card_vs_cpu(torch, device, seed, work, params, xyz):
                 growth_score_max_diff=score_err)
 
 
+# PDCNet+ (phases 18-19): the matcher of the paper, at LLFF's matching size
+PDCNET_STAGES = ("vgg_pyramid", "vgg_pyramid_256", "global_gocor", "local_gocor_L3",
+                 "local_gocor_L2", "local_gocor_L1", "decoders", "uncertainty")
+PDCNET_REPS = 5
+PDCNET_TOL = 1e-3  # card against CPU, of each map's largest value (PERF.md)
+RANSAC_TOL_PX = 1e-2  # exact inliers at 2016x1512: corners against the true H
+
+
+class PDCNetProbe:
+    """Stage spans of a PDCNetModel's forward through forward hooks: CUDA
+    events around each stage module (summed per stage over the calls) and
+    profiler ranges `pdcnet::<stage>`; the local correlation and its
+    transpose (gocor.py, model.py) run inside ranges
+    `pdcnet::local_correlation[_transpose]`."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model = torch, model
+        self.events, self.local_calls, self.handles, self.open = [], 0, [], {}
+
+    def stage(self, name):
+        if name.startswith(("vgg", "global")):
+            return name
+        if name == "local_corr":
+            return f"local_gocor_L{3 - self.local_calls % 3}"
+        return "uncertainty" if "uncertainty" in name else "decoders"
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from binocular3dgs_torch.init.pdcnet import gocor
+        from binocular3dgs_torch.init.pdcnet import model as model_mod
+
+        torch, probe = self.torch, self
+        names = {"pyramid": "vgg_pyramid", "pyramid_256": "vgg_pyramid_256",
+                 "corr": "global_gocor"}
+        for name, mod in self.model.named_children():
+            label = names.get(name, name)
+
+            def pre(m, args, label=label):
+                stage = probe.stage(label)
+                s = torch.cuda.Event(enable_timing=True)
+                s.record()
+                rf = record_function(f"pdcnet::{stage}")
+                rf.__enter__()
+                probe.open[id(m)] = (stage, s, rf)
+
+            def post(m, args, out, label=label):
+                stage, s, rf = probe.open.pop(id(m))
+                rf.__exit__(None, None, None)
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                probe.events.append((stage, s, e))
+                if label == "local_corr":
+                    probe.local_calls += 1
+
+            self.handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+
+        def ranged(fn, name):
+            def run(*a, **k):
+                with record_function(f"pdcnet::{name}"):
+                    return fn(*a, **k)
+            return run
+
+        self.saved = [(gocor, "local_correlation"), (gocor, "local_correlation_transpose"),
+                      (model_mod, "local_correlation")]
+        self.saved = [(o, n, getattr(o, n)) for o, n in self.saved]
+        for o, n, f in self.saved:
+            setattr(o, n, ranged(f, n))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        for o, n, f in self.saved:
+            setattr(o, n, f)
+
+    def spans_ms(self, calls):
+        """Per-stage event ms per forward over the last `calls` forwards."""
+        self.torch.cuda.synchronize()
+        out = {k: 0.0 for k in PDCNET_STAGES}
+        for stage, s, e in self.events:
+            out[stage] += s.elapsed_time(e) / calls
+        self.events = []
+        return out
+
+
+def pdcnet_weights(torch, seed, work):
+    """Random PDCNet+ weights from --seed as a `.pth` (torch.save of the
+    state_dict) and as the npz both packages read; both must load to equal
+    tensors."""
+    from binocular3dgs_torch.init.pdcnet import convert
+    from binocular3dgs_torch.init.pdcnet.model import random_model
+
+    sd = random_model(seed).state_dict()
+    pth, npz = os.path.join(work, "pdcnet_random.pth"), os.path.join(work, "pdcnet_random.npz")
+    torch.save(sd, pth)
+    convert.save_npz(sd, npz)
+    a, b = convert.load_checkpoint(pth), convert.load_checkpoint(npz)
+    only_pth = {k for k in set(a) - set(b) if not k.endswith("num_batches_tracked")}
+    equal = not only_pth and set(b) <= set(a) and all(torch.equal(a[k], b[k]) for k in b)
+    check(equal, f"the .pth and the npz load differently ({sorted(only_pth)[:3]})")
+    return pth, npz, dict(tensors=len(b), parameters=int(sum(v.numel() for v in b.values())),
+                          pth_and_npz_equal=equal)
+
+
+def profile_direct(torch, run):
+    """One call of `run` under torch.profiler: kernel ms, the wall ms under
+    the profiler, the top kernels, and the kernel ms of each `pdcnet::`
+    range read off the device timeline: each kernel counts once, for the
+    innermost range whose device-side annotation holds its start (so a
+    range's time excludes the ranges nested in it). None when the profiler
+    records no annotations. (The CPU rows' inclusive device time counted
+    some kernels twice in a run where earlier phases had profiled.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ann = [(e.name[len("pdcnet::"):], e.time_range.start, e.time_range.end) for e in device
+           if getattr(e, "is_user_annotation", False) and e.name.startswith("pdcnet::")]
+    ranges = None
+    if ann:
+        names = np.array([n for n, _, _ in ann])
+        a0, a1 = np.array([a for _, a, _ in ann]), np.array([b for _, _, b in ann])
+        k = np.array([(e.time_range.start, e.time_range.end) for e in device
+                      if not getattr(e, "is_user_annotation", False)], dtype=np.float64)
+        holds = (k[:, :1] >= a0[None]) & (k[:, :1] < a1[None])
+        length = np.where(holds, (a1 - a0)[None], np.inf)
+        inner, held = length.argmin(1), np.isfinite(length.min(1))
+        ranges = {str(n): float((k[:, 1] - k[:, 0])[held & (names[inner] == n)].sum() / 1e3)
+                  for n in sorted(set(names))}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(kernel_ms=kernel_ms, profiled_wall_ms=wall_ms, range_kernel_ms=ranges,
+                launches=int(sum(e.count for e in kernels)),
+                top_kernels_ms=[[e.key[:160], e.count, e.self_device_time_total / 1e3]
+                                for e in top])
+
+
+def vgg_determinism_ms(torch, net, images, reps=3):
+    """The image VGG pyramid on `images` (ImageNet-normalized, on the card):
+    median CUDA-event ms of `reps` after a warm-up, with cuDNN restricted to
+    deterministic algorithms (as `resolve_device` sets it) and with them
+    free and its benchmark search on; the flags restored."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    out = {}
+    try:
+        for name, det in (("deterministic", True), ("free", False)):
+            cudnn.deterministic, cudnn.benchmark = det, not det
+            with torch.inference_mode():
+                out[name] = median_ms(torch, lambda: [net.model.pyramid(x) for x in images],
+                                      warmup=1, iters=reps)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    return out
+
+
+def phase_pdcnet(torch, device, seed, work):
+    """PDCNet+ at LLFF's matching size: random weights as .pth and npz;
+    `_direct` on one ordered pair of phase 16's views at 2016x1512 (CUDA
+    events, median of 5 after 1 warm-up; stage spans, the profiler's
+    kernels, the local correlation's share, busy share, peak memory);
+    `get_matches_and_confidence` in mode h with cyclic consistency; then
+    `cli triangulate --matcher pdcnet --pdcnet_weights <npz> --resolution 2`
+    in-process on phase 16's scene, the network on the card only."""
+    from binocular3dgs_torch import cli
+    from binocular3dgs_torch.data.ply import fetch_point_cloud
+    from binocular3dgs_torch.init import pipeline
+    from binocular3dgs_torch.init.pdcnet.inference import PDCNetPlus, _preprocess_shapes
+    from binocular3dgs_torch.init.pdcnet.layers import resize_area
+
+    pth, npz, weights = pdcnet_weights(torch, seed, work)
+    scene = os.path.join(work, "llff", "slab")
+    images, _, _, _ = pipeline.load_scene_for_init(scene, "images", 2, device)
+    idx = pipeline.select_train_indices(len(images), "LLFF", 3)
+    ref, src = images[idx[0]], images[idx[1]]
+    h, w = ref.shape[:2]
+    out_hw = (h // 4, w // 4)
+    net = PDCNetPlus(npz, device=device)
+    check(next(net.model.parameters()).device.type == "cuda", "the network is not on the card")
+
+    def direct():
+        return net._direct(src, ref, out_hw)
+
+    with PDCNetProbe(torch, net.model) as probe:
+        direct()
+        probe.spans_ms(1)
+        event_ms, host_ms = [], []
+        for _ in range(PDCNET_REPS):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.record()
+            flow, unc = direct()
+            e.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(s.elapsed_time(e))
+        spans = probe.spans_ms(PDCNET_REPS)
+        torch.cuda.reset_peak_memory_stats()
+        direct()
+        torch.cuda.synchronize()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        prof = profile_direct(torch, direct)
+        probe.spans_ms(1)
+    ph, pw = _preprocess_shapes(h, w)
+    vgg_in = [(resize_area(net._image(im)[None].permute(0, 3, 1, 2), (ph, pw)) / 255.0
+               - net._mean) / net._std for im in (src, ref)]
+    vgg_ms = vgg_determinism_ms(torch, net, vgg_in)
+    direct_ms = float(np.median(event_ms))
+    ranges = prof["range_kernel_ms"] or {}
+    corr_ms = (sum(ranges.get(k, 0.0) for k in ("local_correlation",
+                                                "local_correlation_transpose"))
+               if ranges else None)
+    p_r = unc["p_r"]
+    kernel_ms = prof["kernel_ms"]
+    res = dict(weights=weights, image_hw=[h, w], network_hw=list(_preprocess_shapes(h, w)),
+               output_hw=list(out_hw), direct_ms=direct_ms, direct_ms_all=event_ms,
+               direct_host_ms=float(np.median(host_ms)), stage_span_ms=spans,
+               peak_memory_mib=peak_mib, **prof, local_correlation_kernel_ms=corr_ms,
+               local_correlation_share=corr_ms / kernel_ms if corr_ms is not None else None,
+               busy_share_unprofiled=prof["kernel_ms"] / direct_ms,
+               busy_share_profiled=prof["kernel_ms"] / prof["profiled_wall_ms"],
+               vgg_pyramid_ms_cudnn=vgg_ms,
+               p_r_mean=float(p_r.mean()), p_r_above_0_1=float((p_r >= 0.1).float().mean()))
+    log(f"[18 pdcnet] random weights ({weights['tensors']} tensors, {weights['parameters']} "
+        f"parameters) as .pth and npz load equal; _direct at {w}x{h} (network "
+        f"{res['network_hw'][1]}x{res['network_hw'][0]}, out "
+        f"{out_hw[1]}x{out_hw[0]}): {direct_ms:.1f} ms median of {PDCNET_REPS} (CUDA events; "
+        f"{min(event_ms):.1f}-{max(event_ms):.1f}; host {res['direct_host_ms']:.1f}); stage "
+        "spans " + ", ".join(f"{k} {v:.1f}" for k, v in spans.items())
+        + f" ms; kernels {kernel_ms:.1f} ms in {prof['launches']} launches (profiler, "
+        f"{prof['profiled_wall_ms']:.1f} ms wall under it), busy share "
+        f"{res['busy_share_unprofiled']:.3f} unprofiled / {res['busy_share_profiled']:.3f} "
+        f"profiled; local correlation and transpose {corr_ms} ms of kernels, share "
+        f"{res['local_correlation_share']}; kernel ms per range (innermost, device timeline) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranges.items())
+        + f" ms; the image VGG pyramid on both images {vgg_ms['deterministic']:.1f} ms with "
+        f"cuDNN's deterministic algorithms, {vgg_ms['free']:.1f} ms with its benchmark search"
+        + f"; peak memory {peak_mib:.0f} MiB; top kernels "
+        + "; ".join(f"{k[:90]} x{n} {v:.2f} ms" for k, n, v in prof["top_kernels_ms"])
+        + f"; P_R mean {res['p_r_mean']:.3f}, share >= 0.1 {res['p_r_above_0_1']:.3f}")
+    check(torch.isfinite(flow).all() and flow.std() > 0, "the flow is not finite or constant")
+    check(all(torch.isfinite(unc[k]).all() for k in ("log_var_map", "weight_map", "p_r")),
+          "an uncertainty map is not finite")
+
+    # mode h with cyclic consistency: the matcher's call for one ordered pair
+    forwards = []
+    original = net._forward
+    net._forward = lambda *a: forwards.append(1) or original(*a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = net.get_matches_and_confidence(ref, src)
+    torch.cuda.synchronize()
+    t_match = time.perf_counter() - t0
+    del net._forward
+    res["matches_mode_h"] = dict(s=t_match, network_passes=len(forwards),
+                                 matches=len(pred["kp_source"]))
+    log(f"[18 pdcnet] get_matches_and_confidence (mode h, cyclic consistency) {t_match:.2f} s "
+        f"(host clock), {len(forwards)} network passes, {len(pred['kp_source'])} matches")
+    check(len(pred["kp_source"]) > 0, "no matches from the mode-h matcher")
+
+    out = os.path.join(work, "kp_pdcnet")
+    with InitProbe(torch) as iprobe:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["triangulate", "-s", scene, "--output_path", out, "--resolution", "2",
+                       "--matcher", "pdcnet", "--pdcnet_weights", npz, "--device", device.type])
+        torch.cuda.synchronize()
+        t_tri = time.perf_counter() - t0
+    check(rc == 0, "cli triangulate --matcher pdcnet failed")
+    ply = fetch_point_cloud(os.path.join(out, "slab_keypoints_to_3d.ply"))
+    t = {k: sum(v) for k, v in iprobe.t.items()}
+    net_ms = [s.elapsed_time(e) for s, e in iprobe.net_ms]
+    growth = iprobe.growth[0] if iprobe.growth else (np.zeros((0, 3)), 0, 0)
+    res["triangulate"] = dict(
+        s=t_tri, load_resize_s=t["load_s"], match_s=t["match_s"],
+        dlt_filters_s=t["pairs_s"] - t["match_s"], growth_s=t["growth_s"],
+        network_passes=len(net_ms),
+        network_ms_median=float(np.median(net_ms)) if net_ms else None,
+        network_ms_sum=float(sum(net_ms)), matches_per_pair=iprobe.matches,
+        dlt_points=int(sum(len(d[4]) for d in iprobe.dlt)), points_before_growth=len(growth[0]),
+        ply_points=len(ply.points), devices=sorted(iprobe.devices))
+    tri = res["triangulate"]
+    log(f"[18 pdcnet] cli triangulate --matcher pdcnet --resolution 2: {t_tri:.2f} s (host "
+        f"clock); load and resize {t['load_s']:.2f} s; matching {t['match_s']:.2f} s for "
+        f"{len(iprobe.matches)} pairs ({len(net_ms)} network passes, "
+        f"{tri['network_ms_sum'] / 1e3:.2f} s of them by CUDA events, median "
+        f"{tri['network_ms_median']} ms); matches per pair {iprobe.matches}; DLT and filters "
+        f"{tri['dlt_filters_s']:.2f} s ({tri['dlt_points']} DLT points, {len(growth[0])} kept); "
+        f"growth {t['growth_s']:.2f} s; {len(ply.points)} points written; devices "
+        f"{sorted(iprobe.devices)}")
+    check(len(iprobe.matches) == 6 and len(net_ms) >= 12,
+          f"{len(iprobe.matches)} matcher calls, {len(net_ms)} network passes")
+    check({d for k, d in iprobe.devices if k in ("network", "ransac")} <= {"cuda"}
+          and ("network", "cuda") in iprobe.devices, f"PDCNet+ ran on {iprobe.devices}")
+    return res, npz
+
+
+def pdcnet_match_set(seed, n, w, h, outliers=0.4):
+    """n matches of a known homography at a w x h image (exact inliers,
+    outliers displaced by at least 3 px), float32."""
+    rng = np.random.default_rng(seed)
+    H = np.array([[1.03, 0.02, 15.0], [-0.015, 0.99, -9.0], [2e-6, -1e-6, 1.0]])
+    src = rng.uniform([0, 0], [w, h], (n, 2))
+    p = np.c_[src, np.ones(n)] @ H.T
+    dst = p[:, :2] / p[:, 2:]
+    bad = rng.choice(n, int(outliers * n), replace=False)
+    true = dst[bad].copy()
+    dst[bad] = rng.uniform([0, 0], [w, h], (len(bad), 2))
+    near = np.linalg.norm(dst[bad] - true, axis=1) < 3.0
+    dst[bad[near]] += 4.0
+    return src.astype(np.float32), dst.astype(np.float32), H
+
+
+def phase_pdcnet_card_vs_cpu(torch, device, seed, work, npz):
+    """PDCNet+ on the card against the CPU with the same weights: mode d
+    with cyclic consistency at 256x256 (a crop of phase 16's views); the
+    RANSAC homography on a 100,000-match set of a known H at 2016x1512 on
+    both (each within RANSAC_TOL_PX of the true H at the corners); the
+    perspective warp of a 2016x1512 view on both."""
+    from binocular3dgs_torch.init import pipeline
+    from binocular3dgs_torch.init.pdcnet.homography import (
+        find_homography_ransac,
+        warp_perspective,
+    )
+    from binocular3dgs_torch.init.pdcnet.inference import PDCNetPlus
+
+    scene = os.path.join(work, "llff", "slab")
+    images, _, _, _ = pipeline.load_scene_for_init(scene, "images", 2, device)
+    idx = pipeline.select_train_indices(len(images), "LLFF", 3)
+    h, w = images[0].shape[:2]
+    y0, x0 = h // 2 - 128, w // 2 - 128
+    ref, src = (images[i][y0:y0 + 256, x0:x0 + 256] for i in idx[:2])
+    maps = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        net = PDCNetPlus(npz, {"multi_stage_type": "d"}, device=dev)
+        flow, unc = net.estimate_flow_and_confidence_map(src, ref)
+        maps[name] = {"flow": flow.cpu(), **{k: unc[k].cpu() for k in (
+            "log_var_map", "weight_map", "p_r", "cyclic_consistency_error")}}
+    rel = {k: float((maps["card"][k] - v).abs().max() / v.abs().max())
+           for k, v in maps["cpu"].items()}
+
+    m_src, m_dst, H_true = pdcnet_match_set(seed, 100_000, w, h)
+    corners = np.array([[0, 0, 1], [w, 0, 1], [0, h, 1], [w, h, 1.0]])
+
+    def corner_err(H_):
+        a, b = corners @ H_.T, corners @ H_true.T
+        return float(np.abs(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:]).max())
+
+    ransac = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        s_, d_ = torch.from_numpy(m_src).to(dev), torch.from_numpy(m_dst).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H_, inl = find_homography_ransac(s_, d_, 1.0)
+        torch.cuda.synchronize()
+        ransac[name] = dict(s=time.perf_counter() - t0, corner_err_px=corner_err(H_),
+                            inliers=int(inl.sum()), device=inl.device.type)
+
+    img = torch.from_numpy(images[idx[1]]).float()
+    img_card = img.to(device)
+    want = warp_perspective(img, H_true, (w, h))
+    got = warp_perspective(img_card, H_true, (w, h))
+    warp_ms = median_ms(torch, lambda: warp_perspective(img_card, H_true, (w, h)),
+                        warmup=1, iters=5)
+    warp_err = float((got.cpu() - want).abs().max())
+    res = dict(map_max_rel_diff=rel, tol=PDCNET_TOL, ransac=ransac, ransac_tol_px=RANSAC_TOL_PX,
+               warp_max_abs_diff=warp_err, warp_ms=warp_ms, warp_hw=[h, w])
+    log(f"[19 pdcnet card vs CPU] 256x256 mode d with cyclic consistency: max difference over "
+        f"each map's largest value " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f" (tol {PDCNET_TOL}); RANSAC on 100,000 matches at {w}x{h} (40% outliers): "
+        + "; ".join(f"{k} {v['s']:.2f} s, corners {v['corner_err_px']:.3g} px from the true H, "
+                    f"{v['inliers']} inliers" for k, v in ransac.items())
+        + f" (tol {RANSAC_TOL_PX} px); warp_perspective {w}x{h} card {warp_ms:.2f} ms (CUDA "
+        f"events), max difference to the CPU {warp_err:.3g} (tol 1e-3)")
+    check(all(v <= PDCNET_TOL for v in rel.values()), f"card and CPU maps differ: {rel}")
+    check(ransac["card"]["device"] == "cuda", "the RANSAC did not run on the card")
+    check(all(v["corner_err_px"] <= RANSAC_TOL_PX for v in ransac.values()),
+          f"RANSAC off the true H: {ransac}")
+    check(warp_err <= 1e-3, f"warp_perspective card and CPU differ by {warp_err}")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1857,6 +2293,8 @@ def main():
         dense_init, init_params, init_xyz = phase_dense_init(torch, device, args.seed, work)
         init_card_vs_cpu = phase_init_card_vs_cpu(torch, device, args.seed, work, init_params,
                                                   init_xyz)
+        pdcnet, pdcnet_npz = phase_pdcnet(torch, device, args.seed, work)
+        pdcnet_card_vs_cpu = phase_pdcnet_card_vs_cpu(torch, device, args.seed, work, pdcnet_npz)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     b1["launches_spiral"] = spiral["launches"]
@@ -1868,7 +2306,8 @@ def main():
                       "cli": cli_res, "cli_train": cli_train, "resume": resume,
                       "spiral": spiral, "lpips": lpips, "viewer": viewer,
                       "determinism": determinism, "dense_init": dense_init,
-                      "init_card_vs_cpu": init_card_vs_cpu, "card": smi}))
+                      "init_card_vs_cpu": init_card_vs_cpu, "pdcnet": pdcnet,
+                      "pdcnet_card_vs_cpu": pdcnet_card_vs_cpu, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

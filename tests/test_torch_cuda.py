@@ -2,8 +2,8 @@
 blend backward B2, warp forward W1 and backward W2) against their plain
 PyTorch versions, and their launch counters around a render and a training
 step; a training step that repeats bit for bit; the dense init's Farneback
-flow and growth scorer on the card against the CPU. They skip without a
-card.
+flow and growth scorer, and one PDCNet+ pass, RANSAC and warp, on the card
+against the CPU. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -334,3 +334,53 @@ def test_growth_scorer_card_matches_cpu(cuda_device):
     got = score(*(x.to(cuda_device) for x in args)).cpu()
     assert (want > 0.5).any()
     assert (got - want).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_pdcnet_direct_card_matches_cpu(cuda_device):
+    """One PDCNet+ `_direct` at full depth (3 global, 7 local iterations) on
+    seeded random weights and 96x128 images (the network sees 256x256), on
+    the card against the CPU: flow, log-variance, weight and P_R within
+    1e-3 of each map's largest value (TF32 off: the sums' order and cuDNN's
+    algorithms differ, nothing else); then the RANSAC homography and the
+    perspective warp on the card."""
+    from binocular3dgs_torch.init.pdcnet.homography import (
+        find_homography_ransac,
+        warp_perspective,
+    )
+    from binocular3dgs_torch.init.pdcnet.inference import PDCNetPlus
+    from binocular3dgs_torch.init.pdcnet.model import random_model
+
+    weights = random_model(0).state_dict()
+    rng = np.random.default_rng(0)
+    src, tgt = ((rng.random((96, 128, 3)) * 255).astype(np.uint8) for _ in range(2))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        net = PDCNetPlus(weights, {"multi_stage_type": "d"}, device=dev)
+        assert next(net.model.parameters()).device.type == torch.device(dev).type
+        flow, unc = net._direct(src, tgt, (24, 32))
+        out[str(dev)] = [flow.cpu()] + [unc[k].cpu()
+                                        for k in ("log_var_map", "weight_map", "p_r")]
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+    H = np.array([[1.02, 0.03, 2.0], [-0.02, 0.98, -1.5], [1e-4, -5e-5, 1.0]])
+    pts = rng.uniform([0, 0], [128, 96], (2000, 2))
+    p = np.c_[pts, np.ones(len(pts))] @ H.T
+    dst = p[:, :2] / p[:, 2:]
+    true = dst[:600].copy()
+    dst[:600] = rng.uniform([0, 0], [128, 96], (600, 2))  # outliers, kept off their true spot
+    dst[:600][np.linalg.norm(dst[:600] - true, axis=1) < 3.0] += 4.0
+    Hc, mask = find_homography_ransac(torch.from_numpy(pts).to(cuda_device),
+                                      torch.from_numpy(dst).to(cuda_device), 1.0)
+
+    def corners(M):
+        c = np.array([[0, 0, 1], [128, 0, 1], [0, 96, 1], [128, 96, 1.0]]) @ M.T
+        return c[:, :2] / c[:, 2:]
+
+    assert mask.device.type == "cuda" and np.abs(corners(Hc) - corners(H)).max() <= 1e-3
+    img = torch.from_numpy((rng.random((96, 128, 3)) * 255).astype(np.float32))
+    want = warp_perspective(img, H, (128, 96))
+    got = warp_perspective(img.to(cuda_device), H, (128, 96)).cpu()
+    assert (got - want).abs().max() <= 1e-3

@@ -32,7 +32,8 @@ def test_scans_the_port():
                    "render/network_gui.py", "eval/lpips.py", "quality_run.py",
                    "init/image_io.py", "init/geometry.py", "init/correlation.py",
                    "init/farneback.py", "init/matchers.py", "init/pipeline.py",
-                   "orchestrate.py"):
+                   "init/pdcnet/model.py", "init/pdcnet/homography.py",
+                   "init/pdcnet/inference.py", "orchestrate.py"):
         assert f"binocular3dgs_torch/{module}" in names, module
 
 

@@ -17,7 +17,8 @@ import torch
 from binocular3dgs_tpu.init.matchers import FarnebackMatcher as JaxMatcher
 from binocular3dgs_torch.core.camera import make_camera
 from binocular3dgs_torch.init.farneback import calc_optical_flow_farneback, gaussian_kernel
-from binocular3dgs_torch.init.matchers import FarnebackMatcher, select_matcher
+from binocular3dgs_torch.init.matchers import FarnebackMatcher, PDCNetPlusMatcher, select_matcher
+from binocular3dgs_torch.init.pdcnet.model import random_model
 from binocular3dgs_torch.models.gaussians import from_numpy
 from binocular3dgs_torch.ops.rasterize import render_tiled
 
@@ -111,9 +112,14 @@ def test_matcher_matches_jax(name):
     assert d <= 0.05, d
 
 
-def test_select_matcher():
+def test_select_matcher(tmp_path):
     assert isinstance(select_matcher("farneback", device="cpu"), FarnebackMatcher)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        select_matcher("pdcnet", weights_path="x.pth")
+    with pytest.raises(ValueError, match="requires a checkpoint"):
+        select_matcher("pdcnet", device="cpu")
+    weights = str(tmp_path / "w.pth")
+    torch.save(random_model(0).state_dict(), weights)
+    matcher = select_matcher("pdcnet", weights_path=weights, device="cpu")
+    assert isinstance(matcher, PDCNetPlusMatcher)
+    assert matcher.net.device == torch.device("cpu")
     with pytest.raises(ValueError):
         select_matcher("sift", device="cpu")

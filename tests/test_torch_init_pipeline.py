@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from binocular3dgs_tpu import cli as jax_cli
 from binocular3dgs_tpu.init import pipeline as jax_pipeline
 from binocular3dgs_tpu.init.matchers import FarnebackMatcher as JaxMatcher
 from binocular3dgs_torch import cli
@@ -29,6 +30,7 @@ from test_cli import build_colmap_scene
 from test_torch_checkpoint import one_thread  # noqa: F401  (autouse)
 
 MARGIN = 1e-4  # |JAX score - threshold| beyond which keep decisions must agree
+JAX_NO_WEIGHTS = "PDCNet\\+ inference requires a checkpoint"
 
 
 def three_cameras():
@@ -193,8 +195,9 @@ def test_triangulate_scene_matches_jax(tmp_path):
 def test_cli_triangulate(tmp_path, capsys):
     """`cli triangulate --device cpu` with the default matcher and growth,
     against the JAX triangulate_scene without growth: the grown cloud holds
-    the JAX package's dense points; `--matcher pdcnet` exits non-zero; the
-    default device, cuda, raises without a card."""
+    the JAX package's dense points; `--matcher pdcnet` without
+    `--pdcnet_weights` raises the JAX package's error (a non-zero exit);
+    the default device, cuda, raises without a card."""
     scene = str(tmp_path / "scene")
     build_colmap_scene(scene, n_views=9)
     out = str(tmp_path / "kp")
@@ -209,8 +212,10 @@ def test_cli_triangulate(tmp_path, capsys):
     got, dense = fetch_point_cloud(ply).points, fetch_point_cloud(want).points
     assert len(got) >= len(dense) > 0
     assert_same_point_set(got[:len(dense)], dense)
-    assert cli.main(["triangulate", "-s", scene, "--matcher", "pdcnet", "--device", "cpu"]) != 0
-    assert "not yet ported" in capsys.readouterr().out
+    with pytest.raises(ValueError, match=JAX_NO_WEIGHTS):  # a non-zero exit, as the JAX CLI's
+        cli.main(["triangulate", "-s", scene, "--matcher", "pdcnet", "--device", "cpu"])
+    with pytest.raises(ValueError, match=JAX_NO_WEIGHTS):
+        jax_cli.cmd_triangulate(["-s", scene, "--matcher", "pdcnet"])
     if not torch.cuda.is_available():  # the default device is cuda: no card, no run
         with pytest.raises(RuntimeError, match="cuda"):
             cli.main(["triangulate", "-s", scene, "--output_path", out])
