@@ -89,7 +89,8 @@ def cmd_train(argv):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--pairs_per_gaussian", type=int, default=12)
     p.add_argument("--fused_steps", type=int, default=0,
-                   help="accepted for the JAX CLI's sake; the port runs one step per iteration")
+                   help="most steps the trainer runs between two host reads of the card "
+                        "(0: the densification interval; 1: a read after every step)")
     p.add_argument("--debug", action="store_true",
                    help="dump the state and abort on a non-finite loss "
                         "(reference --detect_anomaly)")

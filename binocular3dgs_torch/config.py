@@ -6,8 +6,8 @@ in the other. The JAX `backend` choice, the TPU-only raster knobs
 (`pallas_chunk`, `pallas_tile_group`, `grad_sort_bf16`, `max_pairs_per_tile`,
 `chunk`) are not carried: unknown keys are ignored on load. The port has one
 blend path, whose wrapper launches the CUDA kernel for CUDA tensors and its
-plain version for CPU ones. `TrainConfig.fused_steps` is read and ignored:
-the port's trainer runs one step per iteration (train/loop.py).
+plain version for CPU ones. `TrainConfig.fused_steps` caps the trainer's
+spans of steps between host reads (train/loop.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -82,6 +82,9 @@ class RasterConfig:
     # Static capacity of the (tile, gaussian) pair list as a multiple of the
     # gaussian capacity. Overflowing pairs are dropped (reported via num_pairs).
     pairs_per_gaussian: int = 12
+    # Band-sharded rendering (parallel/sharding.py): pairs_per_gaussian of
+    # each rank's band; None = max(4, ceil(3 * pairs_per_gaussian / ranks)).
+    band_pairs_per_gaussian: int | None = None
     # Ceiling of the trainer's pair-capacity growth (train/loop.py doubles
     # pairs_per_gaussian up to it when the wanted pairs near capacity).
     max_pairs_per_gaussian: int = 96

@@ -31,6 +31,14 @@ Serving callers render under `torch.no_grad()`.
 Static capacity: `pair_capacity = pairs_per_gaussian * N`; overflowing
 pairs are dropped (the deepest last) and reported by
 `RenderOutput.num_pairs`.
+
+Band mode (`tile_row_start`, `tile_rows`; JAX `ops/rasterize.py:308-414`):
+only the tile rows [tile_row_start, tile_row_start + tile_rows) are binned
+and blended, the unit of parallel/sharding.py's split. The splat centres are
+shifted by `tile_row_start * tile_size` pixels before binning, so binning
+and the blend kernels work in band-local coordinates unchanged; the shift is
+a constant, so the carrier's gradient is that of the full render. The band
+comes back uncropped, `tile_rows * tile_size` pixel rows high.
 """
 
 from __future__ import annotations
@@ -125,18 +133,21 @@ def render_tiled(
     raster: RasterConfig = _DEFAULT_RASTER,
     device: str | torch.device = "cuda",
     mean2d_carrier: torch.Tensor | None = None,
+    tile_row_start: int = 0,
+    tile_rows: int | None = None,
 ) -> RenderOutput:
     """Render `model` from `camera` on `device` (the model and camera are
     moved there if they live elsewhere); `bg` is an RGB sequence or (3,)
     tensor. Differentiable in the model's parameters and in
     `mean2d_carrier` (N, 2), see ops/project.py. Raises when `device` is
-    CUDA and no card is present."""
+    CUDA and no card is present. With `tile_rows`, renders only that band
+    of tile rows from `tile_row_start` (module docstring)."""
     device = resolve_device(device)
     camera = camera.to(device)
     model = model.to(device)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=device)
     proj = project_for_render(camera, model, raster, mean2d_carrier)
-    return rasterize_projected(camera, proj, bg, raster)
+    return rasterize_projected(camera, proj, bg, raster, tile_row_start, tile_rows)
 
 
 def rasterize_projected(
@@ -144,13 +155,20 @@ def rasterize_projected(
     proj: ProjectedGaussians,
     bg: torch.Tensor,
     raster: RasterConfig = _DEFAULT_RASTER,
+    tile_row_start: int = 0,
+    tile_rows: int | None = None,
 ) -> RenderOutput:
-    """Binning, record gather and blend of an already-projected set."""
+    """Binning, record gather and blend of an already-projected set (of
+    the band `tile_rows` from `tile_row_start` when `tile_rows` is given)."""
     W, H = camera.width, camera.height
     ts = raster.tile_size
     TW, TH = tile_grid(W, H, ts)
     N = proj.mean2d.shape[0]
     pair_capacity = raster.pairs_per_gaussian * N
+    if tile_rows is not None:
+        TH, H = tile_rows, tile_rows * ts
+        shift = torch.tensor([0.0, float(tile_row_start * ts)], device=proj.mean2d.device)
+        proj = proj._replace(mean2d=proj.mean2d - shift)
 
     binning = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, W, H, ts, pair_capacity)
     fields_d = torch.index_select(_build_fields(proj), 1, binning.order)

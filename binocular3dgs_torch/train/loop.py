@@ -8,11 +8,24 @@ SH degree bump every 1000 iterations, the binocular branch after
 pair-capacity growth, PSNR/L1 report at `test_iterations` and PLY snapshots
 at `save_iterations`, npz checkpoints at `checkpoint_iterations`.
 
-It runs one step per iteration: the JAX trainer's fused spans
-(`TrainConfig.fused_steps`, `_fused_span`) amortize JAX dispatch and are not
-carried over; the config key is read and ignored. The binocular shift and
-the split noise come from one `torch.Generator` on the CPU seeded with
-`cfg.train.seed`, so a run draws the same numbers on any device.
+Steps run in spans, as the JAX trainer's fused spans (`_fused_span`,
+JAX `train/loop.py:195-223`): an SH bump or the binocular flip starts a
+span, densification, a report, a save or a checkpoint may only end one, and
+a span holds at most `TrainConfig.fused_steps` steps (the densification
+interval when 0). Inside a span no device value is read: the host queues
+step i+1 while the card runs step i, and the pair pressure is kept as a
+running device maximum. At the span's end the host reads once (the pair
+pressure and the logged losses together), grows the pair capacity,
+densifies, logs and reports. So the pair capacity grows at a span's end, as
+in the JAX trainer; `fused_steps=1` reads after every step. With
+`cfg.pipeline.debug` every step's loss is read and checked. Views and the
+binocular shift are host draws for every step, where the JAX fused path
+draws views on the device: the view index from a `random.Random` and the
+shift and split noise from one `torch.Generator` on the CPU, both seeded
+with `cfg.train.seed`, so a run draws the same numbers on any device.
+
+`render_fn` (JAX `Trainer(render_fn=)`) replaces the trainer's render, e.g.
+by the dense oracle or parallel/sharding.py's band-sharded render.
 
 Checkpoints (`save_checkpoint`, `load_checkpoint`) use the JAX package's
 npz layout key for key, dtype for dtype, padded rows included, so a
@@ -84,10 +97,12 @@ class TrainerLogEntry:
 class Trainer:
     """Drives training of one scene on `device`."""
 
-    def __init__(self, cfg: Config, scene: Scene, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, scene: Scene, device: str | torch.device = "cuda",
+                 render_fn=None):
         self.cfg = cfg
         self.scene = scene
         self.device = resolve_device(device)
+        self.render_fn = render_fn
         # The trainer's own raster config: pair-capacity growth replaces this
         # copy, never the (possibly shared) cfg.raster.
         self.raster = dataclasses.replace(cfg.raster)
@@ -118,7 +133,10 @@ class Trainer:
         self.log: list[TrainerLogEntry] = []
 
     def render(self, camera, model, bg, mean2d_carrier=None):
-        """render_tiled with the trainer's (possibly grown) raster config."""
+        """`render_fn` when one was given, else render_tiled with the
+        trainer's (possibly grown) raster config."""
+        if self.render_fn is not None:
+            return self.render_fn(camera, model, bg, mean2d_carrier=mean2d_carrier)
         return render_tiled(camera, model, bg, raster=self.raster, device=self.device,
                             mean2d_carrier=mean2d_carrier)
 
@@ -143,78 +161,134 @@ class Trainer:
         u, s = torch.rand(2, generator=self.generator).tolist()
         return u * self.cfg.train.cam_trans_dist * (1.0 if s < 0.5 else -1.0)
 
+    def _fused_span(self, it: int, iterations: int, binocular_from: int) -> int:
+        """The longest span of steps from `it` that crosses no protocol
+        boundary: the JAX trainer's `_fused_span`, line for line."""
+        cfg, opt = self.cfg, self.cfg.opt
+        cap = cfg.train.fused_steps if cfg.train.fused_steps > 0 else opt.densification_interval
+        n = min(cap, iterations - it + 1)
+        # the SH bump happens at the start of iteration j for j % 1000 == 0
+        next_bump = (it // 1000 + 1) * 1000
+        n = min(n, next_bump - it)
+        # the binocular branch turns on at iteration shift_cam_start + 1
+        if cfg.train.binocular_consistency and it <= cfg.train.shift_cam_start:
+            n = min(n, binocular_from - it)
+        # densification runs after iteration j (j % interval == 0, in range)
+        densify_until = iterations if cfg.train.opacity_decay else opt.densify_until_iter
+        interval = opt.densification_interval
+        j = (it // interval + (0 if it % interval == 0 else 1)) * interval
+        while j <= opt.densify_from_iter:  # skip triggers before the range
+            j += interval
+        if it <= j < densify_until:
+            n = min(n, j - it + 1)
+        # host-side events after iteration j
+        for marks in (cfg.train.test_iterations, cfg.train.save_iterations,
+                      cfg.train.checkpoint_iterations):
+            for m in marks:
+                if m >= it:
+                    n = min(n, m - it + 1)
+        return max(n, 1)
+
     def train(self, iterations: int | None = None, progress=None, first_iteration: int = 1):
         cfg = self.cfg
         opt = cfg.opt
         iterations = iterations or opt.iterations
         densify_until = iterations if cfg.train.opacity_decay else opt.densify_until_iter
-        last_log_t, last_log_it = time.time(), first_iteration - 1
+        binocular_from = cfg.train.shift_cam_start + 1
+        last_read_t, last_read_it = time.time(), first_iteration - 1
 
-        for iteration in range(first_iteration, iterations + 1):
+        iteration = first_iteration
+        while iteration <= iterations:
             if iteration % 1000 == 0:
                 self.state = self.state.replace(model=self.state.model.one_up_sh_degree())
             binocular = (
                 cfg.train.binocular_consistency and iteration > cfg.train.shift_cam_start
             )
-            view_idx = self.rng.randrange(len(self.views))
-            trans = self._draw_trans() if binocular else None
-            self.state, metrics = self.steps[binocular](
-                self.state, self.cams[view_idx], self.gt_images[view_idx],
-                self.alpha_weights[view_idx], iteration, trans, self.bg,
-            )
-            self._maybe_grow_pair_capacity(metrics, iteration)
+            last_it = iteration + self._fused_span(iteration, iterations, binocular_from) - 1
+            num_pairs, max_tile_pairs, logged = None, None, []
+            for it in range(iteration, last_it + 1):
+                view_idx = self.rng.randrange(len(self.views))
+                trans = self._draw_trans() if binocular else None
+                self.state, metrics = self.steps[binocular](
+                    self.state, self.cams[view_idx], self.gt_images[view_idx],
+                    self.alpha_weights[view_idx], it, trans, self.bg,
+                )
+                # the span's pair pressure, kept on the device
+                if num_pairs is None:
+                    num_pairs, max_tile_pairs = metrics.num_pairs, metrics.max_tile_pairs
+                else:
+                    num_pairs = torch.maximum(num_pairs, metrics.num_pairs)
+                    max_tile_pairs = torch.maximum(max_tile_pairs, metrics.max_tile_pairs)
+                if cfg.pipeline.debug:
+                    self._check_loss(metrics, it)
+                if progress is not None and it % 10 == 0:
+                    logged.append((it, metrics))
 
-            if (opt.densify_from_iter < iteration < densify_until
-                    and iteration % opt.densification_interval == 0):
+            # the span's one read: the pair pressure, the logged losses and
+            # the point count
+            values = [num_pairs, max_tile_pairs]
+            for _, m in logged:
+                values += [m.loss, m.disparity_loss]
+            if logged:
+                values.append(self.state.model.count())
+            read = torch.stack([v.to(torch.float64) for v in values]).tolist()
+            self._maybe_grow_pair_capacity(int(read[0]), int(read[1]), metrics.pair_capacity,
+                                           last_it)
+
+            densify = (opt.densify_from_iter < last_it < densify_until
+                       and last_it % opt.densification_interval == 0)
+            if densify:
                 self._densify()
 
-            # --detect_anomaly analogue (reference train.py:272,297): dump the
-            # state, then abort
-            if cfg.pipeline.debug and not np.isfinite(float(metrics.loss)):
-                path = os.path.join(cfg.model.model_path or ".", f"anomaly_{iteration}.npz")
-                save_checkpoint(self.state, iteration, path)
-                raise FloatingPointError(
-                    f"non-finite loss {float(metrics.loss)} at iteration {iteration}; "
-                    f"state dumped to {path}"
-                )
-
-            if progress is not None and iteration % 10 == 0:
+            if logged:
                 now = time.time()
-                entry = TrainerLogEntry(
-                    iteration=iteration,
-                    loss=float(metrics.loss),
-                    disparity_loss=float(metrics.disparity_loss),
-                    points=int(self.state.model.count()),
-                    iters_per_sec=(iteration - last_log_it) / max(now - last_log_t, 1e-9),
-                )
-                last_log_t, last_log_it = now, iteration
-                self.log.append(entry)
-                progress(entry)
+                ips = (last_it - last_read_it) / max(now - last_read_t, 1e-9)
+                last_read_t, last_read_it = now, last_it
+                for k, (it, _) in enumerate(logged):
+                    points = int(read[-1])
+                    if it == last_it and densify:
+                        points = int(self.state.model.count())
+                    entry = TrainerLogEntry(iteration=it, loss=read[2 + 2 * k],
+                                            disparity_loss=read[3 + 2 * k], points=points,
+                                            iters_per_sec=ips)
+                    self.log.append(entry)
+                    progress(entry)
 
-            if iteration in cfg.train.test_iterations:
-                self.report(iteration)
-            if iteration in cfg.train.save_iterations:
-                self.save(iteration)
-            if iteration in cfg.train.checkpoint_iterations:
-                self.save_checkpoint(iteration)
+            if last_it in cfg.train.test_iterations:
+                self.report(last_it)
+            if last_it in cfg.train.save_iterations:
+                self.save(last_it)
+            if last_it in cfg.train.checkpoint_iterations:
+                self.save_checkpoint(last_it)
+            iteration = last_it + 1
         return self.state
 
-    def _maybe_grow_pair_capacity(self, metrics, iteration: int):
+    def _check_loss(self, metrics, iteration: int):
+        """--detect_anomaly analogue (reference train.py:272,297): on a
+        non-finite loss, dump the state, then abort."""
+        loss = float(metrics.loss)
+        if not np.isfinite(loss):
+            path = os.path.join(self.cfg.model.model_path or ".", f"anomaly_{iteration}.npz")
+            save_checkpoint(self.state, iteration, path)
+            raise FloatingPointError(
+                f"non-finite loss {loss} at iteration {iteration}; state dumped to {path}")
+
+    def _maybe_grow_pair_capacity(self, wanted: int, max_tile: int, cap: int, iteration: int):
         """When the wanted (tile, gaussian) pairs near the capacity, the
         deepest splats would vanish from renders and gradients: double
         pairs_per_gaussian up to max_pairs_per_gaussian. The port's blend
         reads whole tile segments, so the JAX max_pairs_per_tile branch has
-        no counterpart."""
-        cap = metrics.pair_capacity
-        wanted = int(metrics.num_pairs)
+        no counterpart. A given `render_fn` holds its own capacity, which
+        the trainer does not grow."""
         raster = self.raster
-        if (wanted > cap * self.cfg.capacity.growth_trigger
+        if (self.render_fn is None and wanted > cap * self.cfg.capacity.growth_trigger
                 and raster.pairs_per_gaussian < raster.max_pairs_per_gaussian):
             self.raster = dataclasses.replace(
                 raster, pairs_per_gaussian=min(raster.pairs_per_gaussian * 2,
                                                raster.max_pairs_per_gaussian))
             print(f"[ITER {iteration}] pair capacity grown: pairs_per_gaussian="
-                  f"{self.raster.pairs_per_gaussian} (wanted {wanted} pairs)")
+                  f"{self.raster.pairs_per_gaussian} (wanted {wanted} pairs, max tile "
+                  f"{max_tile})")
 
     def _densify(self):
         cfg = self.cfg

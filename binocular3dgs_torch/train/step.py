@@ -119,11 +119,16 @@ def make_train_step(
     spatial_lr_scale: float,
     binocular: bool,
     use_alpha_weight: bool,
+    adam_fn: Callable[..., int] | None = None,
 ):
     """A train step `(state, camera, gt_image, alpha_weight, iteration,
     trans, bg) -> (state, StepMetrics)`. `trans` is the binocular shift
     (ignored when `binocular` is off). The returned state holds the same
-    tensors as the one passed in, updated in place."""
+    tensors as the one passed in, updated in place.
+
+    `adam_fn` replaces `adam_update` (same arguments and result): the
+    counterpart of the JAX step's `opt_state_sharding`, through which
+    parallel/sharding.py keeps each rank's rows of the moments only."""
     opt = cfg.opt
     xyz_lr = xyz_lr_fn(opt, spatial_lr_scale)
     densify_until = opt.iterations if cfg.train.opacity_decay else opt.densify_until_iter
@@ -181,8 +186,9 @@ def make_train_step(
                                                    state.grad_accum))
                 state.denom.copy_(torch.where(visible, state.denom + 1.0, state.denom))
 
-            step = adam_update(params, grads, state.adam_m, state.adam_v, state.adam_step,
-                               group_lrs(opt, xyz_lr(iteration)), model.active)
+            update = adam_update if adam_fn is None else adam_fn
+            step = update(params, grads, state.adam_m, state.adam_v, state.adam_step,
+                          group_lrs(opt, xyz_lr(iteration)), model.active)
 
         metrics = StepMetrics(
             loss=aux["loss"],

@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's serving path, its training path and its dense init
-(with the Farneback matcher and with PDCNet+) at full width and fails
-(non-zero exit) if any phase fails:
+Drives the port's serving path, its training path, its dense init (with
+the Farneback matcher and with PDCNet+) and its band-sharded path at full
+width and fails (non-zero exit) if any phase fails:
 
   1. environment: the card (nvidia-smi name and power limit), torch/CUDA
      versions, TF32 off for matmuls and cuDNN
@@ -43,7 +43,9 @@ Drives the port's serving path, its training path and its dense init
  10. entry point: `cli train` (densification and the binocular branch
      reached, checkpoints at 30 and 60) on the phase-6 scene, then `cli
      render` and `cli metrics` on its output; chkpnt60.npz, loaded on the
-     card, equals the trainer's final state bit for bit
+     card, equals the trainer's final state bit for bit; then the same `cli
+     train` without checkpoints or report with the default spans and with
+     `--fused_steps 1` in turns (default, 1, 1, default): it/s of each
  11. resume: `cli train --start_checkpoint chkpnt30.npz --iterations 60
      --profile_dir`: the state the resumed trainer steps from equal to
      chkpnt30.npz bit for bit (every buffer, adam_step 30, SH degrees and
@@ -92,6 +94,21 @@ Drives the port's serving path, its training path and its dense init
      of each map's largest value); the RANSAC homography of a 100,000-match
      set of a known H at 2016x1512 on both, each within 1e-2 px of it at
      the corners; the perspective warp of a 2016x1512 view within 1e-3
+ 20. the sharded path on the one card: 2, then 3, `chip_smoke.py
+     --sharded_rank` processes over gloo (host-staged collectives) on the
+     phase-9 workload, each rank checking: its band render of view 0
+     against `render_tiled` (image and alpha 1e-5, depth 1e-4, radii
+     equal), B1 launched once; one sharded step against the single step
+     (loss 1e-5 relative, adam_m and grad_accum within 1e-3 of their norms),
+     launches 2/2/1/1; where the capacity divides: `shard_gaussians`
+     against the replicated render (the same tolerances), 3 `shard_adam`
+     steps against 3 replicated ones bit for bit with capacity/ranks moment
+     rows, and the replicated run twice bit for bit; then the step median
+     (CUDA events), the collectives' calls, MiB and ms per step, kernels
+     per step (profiler) and peak memory
+ 21. `dryrun_multihost(2, 1)` on the card over gloo (both ranks' losses
+     equal, within 1e-6 of one rank); one rank over nccl against one over
+     gloo, bit for bit (NCCL refuses two ranks on one card)
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -219,6 +236,16 @@ def kernel_times(torch, fn, name):
     event_ms = median_ms(torch, fn)
     device_ms = kernel_device_ms(torch, fn, name)
     return (event_ms if device_ms is None else device_ms), event_ms
+
+
+def draw_trans(torch, gen, dist):
+    """The binocular shift as the trainer draws it."""
+    u, s = torch.rand(2, generator=gen).tolist()
+    return u * dist * (1.0 if s < 0.5 else -1.0)
+
+
+def rel_norm(got, want):
+    return float((got - want).norm() / want.norm()) if want.norm() > 0 else float(got.norm())
 
 
 def make_workload(seed, n=N_GAUSS, width=W, height=H, scales=(0.005, 0.02), opacity=None):
@@ -711,15 +738,18 @@ def device_busy(torch, fn, tag, unprofiled_ms, reps=10):
     kernel_us = sum(e.self_device_time_total for e in kernels)
     if kernel_us <= 0:
         log(f"{tag} profiler saw no device time: busy share not measured")
-        return dict(kernel_ms_per_call=None, device_busy_share_profiled=None,
+        return dict(kernel_ms_per_call=None, kernels_per_call=None,
+                    device_busy_share_profiled=None,
                     device_busy_share_unprofiled=None, top_kernels_us=None)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     kernel_ms = kernel_us / 1e3 / reps
-    log(f"{tag} profiler: {kernel_ms:.4f} ms of kernels per call, {wall_ms / reps:.4f} ms wall "
+    launches = sum(e.count for e in kernels) / reps
+    log(f"{tag} profiler: {kernel_ms:.4f} ms of kernels per call ({launches:.1f} kernel "
+        f"launches), {wall_ms / reps:.4f} ms wall "
         f"per call, device busy under the profiler {kernel_us / 1e3 / wall_ms:.3f}, against "
         f"the unprofiled median {kernel_ms / unprofiled_ms:.3f}; top kernels: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / reps:.1f} us" for e in top))
-    return dict(kernel_ms_per_call=kernel_ms,
+    return dict(kernel_ms_per_call=kernel_ms, kernels_per_call=launches,
                 device_busy_share_profiled=kernel_us / 1e3 / wall_ms,
                 device_busy_share_unprofiled=kernel_ms / unprofiled_ms,
                 top_kernels_us={e.key[:80]: e.self_device_time_total / reps for e in top})
@@ -881,8 +911,7 @@ def phase_train(torch, device, seed):
     gen = torch.Generator().manual_seed(seed)
 
     def trans():  # the binocular shift, as the trainer draws it
-        u, s = torch.rand(2, generator=gen).tolist()
-        return u * cfg.train.cam_trans_dist * (1.0 if s < 0.5 else -1.0)
+        return draw_trans(torch, gen, cfg.train.cam_trans_dist)
 
     it = 2
     for _ in range(TRAIN_WARMUP):
@@ -953,10 +982,8 @@ def train_card_vs_cpu(torch, seed, device):
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     rel = {}
     for n in ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation"):
-        g, c = getattr(sg.adam_m, n).cpu(), getattr(sc.adam_m, n)
-        rel[n] = float((g - c).norm() / c.norm()) if c.norm() > 0 else float(g.norm())
-    rel["carrier_grad_norms"] = float((sg.grad_accum.cpu() - sc.grad_accum).norm()
-                                      / sc.grad_accum.norm())
+        rel[n] = rel_norm(getattr(sg.adam_m, n).cpu(), getattr(sc.adam_m, n))
+    rel["carrier_grad_norms"] = rel_norm(sg.grad_accum.cpu(), sc.grad_accum)
     log(f"[9 train] 5k gaussians 256x192, card vs CPU after one step: loss {loss_g:.7f} vs "
         f"{loss_c:.7f} (rel {loss_rel:.2e}, tol 1e-5); |d adam_m| / |adam_m| and carrier grad "
         f"norms: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + " (tol 1e-3)")
@@ -1113,8 +1140,8 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
     state at the first resumed step is held bit for bit against the
     checkpoint (chkpnt30 precedes the densification at 40, so its point
     count and capacity alone are those of a fresh start). The
-    pair capacity restarts from the flag and grows at the first resumed
-    step when phase 10's grew."""
+    pair capacity restarts from the flag and grows at the end of the first
+    resumed span (31-40) when phase 10's grew."""
     import contextlib
     import io
 
@@ -1177,11 +1204,15 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
     check(counts == expected, f"resumed launches {counts}, expected {expected}")
     check(all(symbols.values()), f"the trace misses kernels: {symbols}")
     # the pair capacity restarts from the flag: if phase 10's grew, the
-    # resumed run's grows at its first step (later growth depends on the
-    # replayed draws)
-    flag = load_config(os.path.join(out, "cfg_args.json")).raster.pairs_per_gaussian
-    check(pairs_per_gaussian == flag or (grown and "[ITER 31]" in grown[0]),
-          f"pair capacity after the resume {ppg} ({grown}), phase 10 {pairs_per_gaussian}")
+    # resumed run's grows at the end of its first span, where the trainer
+    # first reads the pair pressure (later growth depends on the replayed
+    # draws)
+    cfg = load_config(os.path.join(out, "cfg_args.json"))
+    first_end = 30 + probe.trainer._fused_span(31, 60, cfg.train.shift_cam_start + 1)
+    check(pairs_per_gaussian == cfg.raster.pairs_per_gaussian
+          or (grown and f"[ITER {first_end}]" in grown[0]),
+          f"pair capacity after the resume {ppg} ({grown}), phase 10 {pairs_per_gaussian}, "
+          f"first span's end {first_end}")
     return dict(train_s=t_train, at_start=probe.at_start, checkpoint=want,
                 restored_bit_exact=restored, launches=counts,
                 pairs_per_gaussian=ppg, pair_growth=grown,
@@ -1351,8 +1382,7 @@ def phase_determinism(torch, device, seed, scene, work, trained):
         gen = torch.Generator().manual_seed(seed)
         losses = []
         for i in range(n):
-            u, s = torch.rand(2, generator=gen).tolist()
-            trans = u * cfg.train.cam_trans_dist * (1.0 if s < 0.5 else -1.0)
+            trans = draw_trans(torch, gen, cfg.train.cam_trans_dist)
             state, m = step(state, cam, gt, aw, 2 + i, trans, bg)
             losses.append(int((m.loss + m.disparity_loss).view(torch.int32)))
         torch.cuda.synchronize()
@@ -2233,10 +2263,323 @@ def phase_pdcnet_card_vs_cpu(torch, device, seed, work, npz):
     return res
 
 
+# the sharded path (phases 20-21): ranks share the one card over gloo, whose
+# collectives run on host copies (parallel/sharding.py, "Transport")
+SHARDED_RANKS = (2, 3)
+SHARDED_TRANSPORT = "gloo"
+SHARDED_STEPS = 3  # the shard_adam and determinism runs
+
+
+def sharded_rank(args):
+    """One rank of phase 20 (`chip_smoke.py --sharded_rank R --world N
+    --init_method URL --out DIR`): the phase-9 workload through the
+    band-sharded render and train step on the card, each gate checked here;
+    the rank's results go to DIR/rank<R>.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from binocular3dgs_torch import resolve_device
+    from binocular3dgs_torch.ops import cuda_build
+
+    cuda_build.load_library()  # the library phase 2 built
+    torch.cuda.set_device(0)
+    device = resolve_device("cuda")
+    dist.init_process_group(SHARDED_TRANSPORT, init_method=args.init_method,
+                            world_size=args.world, rank=args.sharded_rank)
+    try:
+        res = sharded_rank_checks(torch, device, args.seed)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(args.out, f"rank{args.sharded_rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def sharded_rank_checks(torch, device, seed):
+    from binocular3dgs_torch.ops.rasterize import render_tiled
+    from binocular3dgs_torch.parallel.sharding import (
+        gather_opt_state, make_mesh, make_sharded_render, make_sharded_train_step,
+    )
+
+    mesh = make_mesh(device)
+    world, rank = mesh.size, mesh.rank
+    tag = f"[20 sharded {world}/{rank}]"
+    step1, state, cam, gt, aw, bg, cfg = train_setup(torch, seed, device)
+    cap = state.model.capacity
+    res = dict(rank=rank, world=world, transport=mesh.backend, staged=mesh.staged)
+
+    def fresh_state():
+        return train_setup(torch, seed, device)[1]
+
+    def outputs_against(out, ref):
+        diff = {k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+                for k in ("image", "depth", "alpha")}
+        same = {k: float((getattr(out, k) == getattr(ref, k)).float().mean())
+                for k in ("image", "depth", "alpha")}
+        return diff, same, bool(torch.equal(out.radii, ref.radii))
+
+    # the band render of view 0 against the single render; B1 once per rank
+    render = make_sharded_render(mesh, W, H, cfg.raster)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        out = render(cam, state.model, bg)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ref = render_tiled(cam, state.model, bg, raster=cfg.raster, device=device)
+    diff, same, radii_equal = outputs_against(out, ref)
+    res["render"] = dict(max_abs=diff, equal_share=same, radii_equal=radii_equal,
+                         launches=launches, band_pairs_max=int(out.num_pairs),
+                         band_pair_capacity=out.pair_capacity, pairs_single=int(ref.num_pairs))
+    log(f"{tag} band render of view 0 vs render_tiled: max|diff| {diff}, share of equal "
+        f"values {same}, radii equal {radii_equal} (tol image/alpha 1e-5, depth 1e-4); "
+        f"launches {launches}; largest band {int(out.num_pairs)} pairs of "
+        f"{out.pair_capacity}, single render {int(ref.num_pairs)}")
+    check(diff["image"] <= 1e-5 and diff["alpha"] <= 1e-5 and diff["depth"] <= 1e-4
+          and radii_equal, f"{tag} the band render differs from the single render: {diff}")
+    check(launches["blend_forward"] == 1, f"{tag} band render launches {launches}")
+    check(int(out.num_pairs) <= out.pair_capacity, f"{tag} a band overflows its pair capacity")
+
+    # one sharded step against the single-process step from the same state
+    trans = draw_trans(torch, torch.Generator().manual_seed(seed), cfg.train.cam_trans_dist)
+    s1, m1 = step1(state, cam, gt, aw, 2, trans, bg)
+    sharded = make_sharded_train_step(cfg, mesh, W, H, 1.0, binocular=True)
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    s2, m2 = sharded(fresh_state(), cam, gt, aw, 2, trans, bg)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    loss1, loss2 = float(m1.loss + m1.disparity_loss), float(m2.loss + m2.disparity_loss)
+    rel = {n: rel_norm(getattr(s2.adam_m, n), getattr(s1.adam_m, n))
+           for n in ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")}
+    rel["grad_accum"] = rel_norm(s2.grad_accum, s1.grad_accum)
+    loss_rel = abs(loss2 - loss1) / abs(loss1)
+    expected = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1)
+    res["step"] = dict(loss_sharded=loss2, loss_single=loss1, loss_rel=loss_rel, rel_norm=rel,
+                       launches=launches)
+    log(f"{tag} one sharded step vs the single step: loss {loss2:.7f} vs {loss1:.7f} (rel "
+        f"{loss_rel:.2e}, tol 1e-5); |d adam_m|/|adam_m| and grad_accum "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f" (tol 1e-3); launches {launches} (expected {expected})")
+    check(loss_rel <= 1e-5, f"{tag} sharded and single losses differ by {loss_rel}")
+    for k, v in rel.items():
+        check(v <= 1e-3, f"{tag} sharded and single {k} differ by {v} (relative norm)")
+    check(launches == expected, f"{tag} sharded step launches {launches}, expected {expected}")
+    del s1, s2, state
+
+    if cap % world == 0:
+        # shard_gaussians against the replicated sharded render
+        model = fresh_state().model
+        render_g = make_sharded_render(mesh, W, H, cfg.raster, shard_gaussians=True)
+        with torch.no_grad():
+            diff, same, radii_equal = outputs_against(render_g(cam, model, bg),
+                                                      render(cam, model, bg))
+        res["shard_gaussians"] = dict(max_abs=diff, equal_share=same, radii_equal=radii_equal)
+        log(f"{tag} shard_gaussians vs the replicated vertex stage: max|diff| {diff}, share "
+            f"of equal values {same}, radii equal {radii_equal} (tol image/alpha 1e-5, "
+            f"depth 1e-4)")
+        check(diff["image"] <= 1e-5 and diff["alpha"] <= 1e-5 and diff["depth"] <= 1e-4
+              and radii_equal, f"{tag} shard_gaussians changes the render: {diff}")
+
+        # shard_adam against the replicated Adam, and the replicated step twice
+        runs = []
+        for shard_adam in (False, False, True):
+            step = make_sharded_train_step(cfg, mesh, W, H, 1.0, binocular=True,
+                                           shard_adam=shard_adam)
+            st, gen, losses = fresh_state(), torch.Generator().manual_seed(seed), []
+            for it in range(2, 2 + SHARDED_STEPS):
+                st, m = step(st, cam, gt, aw, it,
+                             draw_trans(torch, gen, cfg.train.cam_trans_dist), bg)
+                losses.append(int((m.loss + m.disparity_loss).view(torch.int32)))
+            runs.append((st, losses))
+        rows = sorted({getattr(t, n).shape[0] for t in (runs[2][0].adam_m, runs[2][0].adam_v)
+                       for n in ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")})
+        again = differing_buffers(state_tensors(runs[0][0]), state_tensors(runs[1][0]))
+        adam = differing_buffers(state_tensors(runs[0][0]),
+                                 state_tensors(gather_opt_state(runs[2][0], mesh)))
+        res["shard_adam"] = dict(moment_rows=rows, buffers_differing=adam,
+                                 losses_equal=runs[0][1] == runs[2][1])
+        res["determinism"] = dict(buffers_differing=again, losses_equal=runs[0][1] == runs[1][1])
+        log(f"{tag} {SHARDED_STEPS} steps: shard_adam (moment rows {rows}, capacity {cap}) vs "
+            f"replicated: buffers differing {adam}, losses equal {runs[0][1] == runs[2][1]}; "
+            f"replicated run twice: buffers differing {again}, losses equal "
+            f"{runs[0][1] == runs[1][1]}")
+        check(rows == [cap // world], f"{tag} sharded moments hold {rows} rows")
+        check(not adam and runs[0][1] == runs[2][1], f"{tag} shard_adam differs in {adam}")
+        check(not again and runs[0][1] == runs[1][1],
+              f"{tag} the sharded step does not repeat: {again}")
+        del runs
+
+    # times: the step (CUDA events), its collectives (timed mode), kernels
+    st, gen = fresh_state(), torch.Generator().manual_seed(seed)
+    it = 2
+
+    def one_step():
+        nonlocal st, it
+        st, _ = sharded(st, cam, gt, aw, it, draw_trans(torch, gen, cfg.train.cam_trans_dist),
+                        bg)
+        it += 1
+
+    for _ in range(TRAIN_WARMUP):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        one_step()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    calls = []  # (result bytes, host ms) of every collective, the card synchronised around it
+    run = mesh._run
+
+    def timed_run(op, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(op, x)
+        torch.cuda.synchronize()
+        calls.append((out.numel() * out.element_size(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    mesh._run = timed_run
+    for _ in range(TRAIN_STEPS):
+        one_step()
+    mesh._run = run
+    coll = dict(calls=len(calls) / TRAIN_STEPS,
+                mib=sum(b for b, _ in calls) / TRAIN_STEPS / 2**20,
+                ms=sum(t for _, t in calls) / TRAIN_STEPS)
+    step_median = float(np.median(step_ms))
+    log(f"{tag} step median {step_median:.4f} ms over {TRAIN_STEPS} (CUDA events), "
+        f"{host_ms:.4f} ms per step on the host clock; collectives per step {coll['calls']:.0f} "
+        f"calls, {coll['mib']:.2f} MiB of results, {coll['ms']:.4f} ms (host clock, card "
+        f"synchronised around each); peak memory {peak_mib:.1f} MiB")
+    busy = device_busy(torch, one_step, tag, step_median)
+    res["timing"] = dict(step_ms_median=step_median, step_ms=step_ms, host_ms_per_step=host_ms,
+                         collectives_per_step=coll, peak_mib=peak_mib, **busy)
+    return res
+
+
+def phase_sharded(torch, seed, work):
+    """Phase 20: the band-sharded path on the one card, SHARDED_RANKS ranks
+    at a time, each a `chip_smoke.py --sharded_rank` process (its gates are
+    checked in the rank, which fails the phase)."""
+    from binocular3dgs_torch.parallel.multihost import run_processes
+
+    results = {}
+    for world in SHARDED_RANKS:
+        out = os.path.join(work, f"sharded_{world}")
+        os.makedirs(out)
+        cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--world",
+               str(world), "--init_method", f"file://{out}/rendezvous", "--out", out]
+        t0 = time.perf_counter()
+        try:
+            stdouts = run_processes([cmd + ["--sharded_rank", str(r)] for r in range(world)],
+                                    timeout=420)
+        except RuntimeError as e:
+            fail(f"[20 sharded] {world} ranks: {e}")
+        seconds = time.perf_counter() - t0
+        for text in stdouts:
+            print(text, end="", flush=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"[20 sharded] {world} ranks on one card over {SHARDED_TRANSPORT} (host-staged "
+            f"{ranks[0]['staged']}): all gates held, {seconds:.1f} s with the processes' start")
+        results[f"ranks_{world}"] = dict(seconds=seconds, ranks=ranks)
+    return results
+
+
+def phase_multihost(torch):
+    """Phase 21: `dryrun_multihost` with 2 "hosts" of 1 rank on the card
+    over gloo; then the nccl path at world size 1 (NCCL refuses two ranks on
+    one card) against gloo at world size 1, equal bit for bit."""
+    from binocular3dgs_torch.parallel.multihost import dryrun_multihost, run_processes
+
+    t0 = time.perf_counter()
+    loss = dryrun_multihost(2, 1, backend=SHARDED_TRANSPORT, device="cuda", timeout=300)
+    seconds = time.perf_counter() - t0
+    worker = [sys.executable, "-m", "binocular3dgs_torch.parallel.multihost", "--device", "cuda",
+              "--world_size", "1", "--rank", "0", "--height", "48"]
+    try:
+        outs = run_processes([worker + ["--backend", b] for b in ("nccl", "gloo")], timeout=300)
+    except RuntimeError as e:
+        fail(f"[21 multihost] world size 1: {e}")
+    nccl, gloo = (float(o.strip().splitlines()[-1].split("loss=")[1]) for o in outs)
+    log(f"[21 multihost] 2 processes x 1 rank on the card over {SHARDED_TRANSPORT}: loss "
+        f"{loss!r}, equal on both ranks and within 1e-6 of one rank ({seconds:.1f} s); one rank "
+        f"over nccl {nccl!r}, over gloo {gloo!r}")
+    check(np.isfinite(loss), f"non-finite dry-run loss {loss}")
+    check(nccl == gloo, f"one rank over nccl ({nccl!r}) and gloo ({gloo!r}) differ")
+    check(abs(nccl - loss) < 1e-6, f"one rank {nccl!r} and two ranks {loss!r} differ")
+    return dict(loss=loss, seconds=seconds, nccl_world1=nccl, gloo_world1=gloo)
+
+
+def phase_span_cost(torch, scene, work):
+    """The cost of the trainer's host reads: phase 10's `cli train` (60
+    iterations) with the default spans and with `--fused_steps 1` (a read
+    after every step), in turns default, 1, 1, default; iterations per
+    second of `Trainer.train` (host clock, the card synchronised at its
+    end). No checkpoints and no report, so the train() span is the steps,
+    densification and the PLY save at 60."""
+    from binocular3dgs_torch import cli
+    from binocular3dgs_torch.train import loop
+
+    runs = []
+    for fused in (0, 1, 1, 0):
+        out = os.path.join(work, f"spans_{len(runs)}")
+        argv = ["train", "-s", scene, "-m", out, "--eval", "--iterations", "60",
+                "--shift_cam_start", "20", "--densify_from_iter", "20",
+                "--densification_interval", "20", "--densify_grad_threshold", "1e-6",
+                "--fused_steps", str(fused), "-q"]
+        timed, original = {}, loop.Trainer.train
+
+        def train(trainer, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = original(trainer, *a, **k)
+            torch.cuda.synchronize()
+            timed["s"], timed["trainer"] = time.perf_counter() - t0, trainer
+            return state
+
+        loop.Trainer.train = train
+        try:
+            check(cli.main(argv) == 0, f"cli train --fused_steps {fused} failed")
+        finally:
+            loop.Trainer.train = original
+        runs.append(dict(fused_steps=fused, seconds=timed["s"], it_per_s=60 / timed["s"],
+                         pairs_per_gaussian=timed["trainer"].raster.pairs_per_gaussian,
+                         state={k: v.clone() for k, v in
+                                state_tensors(timed["trainer"].state).items()}))
+        shutil.rmtree(out, ignore_errors=True)
+    differing = differing_buffers(runs[0]["state"], runs[1]["state"])
+    for r in runs:
+        del r["state"]
+    ips = {f: [r["it_per_s"] for r in runs if r["fused_steps"] == f] for f in (0, 1)}
+    log(f"[10 spans] cli train, 60 iterations: it/s with the default spans {ips[0]}, with "
+        f"--fused_steps 1 {ips[1]} (host clock around Trainer.train); final states differing "
+        f"{differing} (pairs_per_gaussian {[r['pairs_per_gaussian'] for r in runs]})")
+    return dict(runs=runs, buffers_differing=differing)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 20, started by phase_sharded
+    ap.add_argument("--sharded_rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init_method", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_rank is not None:
+        sharded_rank(args)
+        return
     t_start = time.perf_counter()
 
     import torch
@@ -2285,6 +2628,7 @@ def main():
         write_colmap_scene(scene, args.seed)
         cli_res = phase_entry_point(torch, model, scene, work)
         cli_train, trained = phase_cli_train(torch, scene, work)
+        spans = phase_span_cost(torch, scene, work)
         resume = phase_resume(torch, scene, work, trained, cli_train["pairs_per_gaussian"])
         spiral = phase_spiral(torch, trained)
         lpips = phase_lpips(torch, args.seed, work, os.path.join(work, "model"))
@@ -2295,8 +2639,13 @@ def main():
                                                   init_xyz)
         pdcnet, pdcnet_npz = phase_pdcnet(torch, device, args.seed, work)
         pdcnet_card_vs_cpu = phase_pdcnet_card_vs_cpu(torch, device, args.seed, work, pdcnet_npz)
+        sharded = phase_sharded(torch, args.seed, work)
+        multihost = phase_multihost(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for k in (b1, b2, w1, w2):  # per rank, in one sharded step (each rank held alike)
+        k["launches_sharded_step"] = [r["step"]["launches"][k["name"]]
+                                      for r in sharded[f"ranks_{SHARDED_RANKS[0]}"]["ranks"]]
     b1["launches_spiral"] = spiral["launches"]
     for k in (b1, b2, w1, w2):
         k["launches_resumed"] = resume["launches"][k["name"]]
@@ -2307,7 +2656,8 @@ def main():
                       "spiral": spiral, "lpips": lpips, "viewer": viewer,
                       "determinism": determinism, "dense_init": dense_init,
                       "init_card_vs_cpu": init_card_vs_cpu, "pdcnet": pdcnet,
-                      "pdcnet_card_vs_cpu": pdcnet_card_vs_cpu, "card": smi}))
+                      "pdcnet_card_vs_cpu": pdcnet_card_vs_cpu, "sharded": sharded,
+                      "multihost": multihost, "spans": spans, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

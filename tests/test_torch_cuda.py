@@ -3,7 +3,8 @@ blend backward B2, warp forward W1 and backward W2) against their plain
 PyTorch versions, and their launch counters around a render and a training
 step; a training step that repeats bit for bit; the dense init's Farneback
 flow and growth scorer, and one PDCNet+ pass, RANSAC and warp, on the card
-against the CPU. They skip without a card.
+against the CPU; a band render over two gloo ranks on the card against the
+single render. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
@@ -17,7 +18,7 @@ import torch
 
 from binocular3dgs_torch.core.camera import make_camera
 from binocular3dgs_torch.models.gaussians import from_numpy
-from binocular3dgs_torch.config import Config
+from binocular3dgs_torch.config import Config, RasterConfig
 from binocular3dgs_torch.ops import blend_cuda, warp
 from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
 from binocular3dgs_torch.ops.blend_cuda import (
@@ -384,3 +385,37 @@ def test_pdcnet_direct_card_matches_cpu(cuda_device):
     want = warp_perspective(img, H, (128, 96))
     got = warp_perspective(img.to(cuda_device), H, (128, 96)).cpu()
     assert (got - want).abs().max() <= 1e-3
+
+
+CARD_BAND_SCENE = (7, 5_000, 256, 192)  # seed, gaussians, width, height
+CARD_BAND_RASTER = RasterConfig(pairs_per_gaussian=64)  # no pair dropped
+
+
+@pytest.mark.cuda
+def test_two_rank_band_render_matches_the_single_render(cuda_device, tmp_path):
+    """Two gloo ranks on the card (tests/torch_parallel_worker.py) render
+    their bands of 6 tile rows each (B1 launched once on each) and gather
+    the image, within the CPU tests' tolerances of the single render. The
+    pair capacity holds every pair of the single render (these splats span
+    many tiles: at the default 12 per gaussian it drops the deepest)."""
+    import os
+    import sys
+
+    from binocular3dgs_torch.parallel.multihost import run_processes
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")
+    run_processes([[sys.executable, worker, "card", str(tmp_path), f"file://{tmp_path}/rdv",
+                    "2", str(r)] for r in range(2)], timeout=600)
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    model, cam = scene(*CARD_BAND_SCENE, cuda_device)
+    with torch.no_grad():
+        want = render_tiled(cam, model, [0.0, 0.0, 0.0], raster=CARD_BAND_RASTER,
+                            device=cuda_device)
+    assert int(want.num_pairs) <= want.pair_capacity
+    for got in ranks:
+        assert int(got["launches"]) == 1
+        assert 0 < got["pairs"][0] <= got["pairs"][1]
+        np.testing.assert_allclose(got["image"], want.image.cpu().numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got["alpha"], want.alpha.cpu().numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got["depth"], want.depth.cpu().numpy(), atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(got["radii"], want.radii.cpu().numpy())

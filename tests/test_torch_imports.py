@@ -33,7 +33,8 @@ def test_scans_the_port():
                    "init/image_io.py", "init/geometry.py", "init/correlation.py",
                    "init/farneback.py", "init/matchers.py", "init/pipeline.py",
                    "init/pdcnet/model.py", "init/pdcnet/homography.py",
-                   "init/pdcnet/inference.py", "orchestrate.py"):
+                   "init/pdcnet/inference.py", "orchestrate.py", "parallel/sharding.py",
+                   "parallel/multihost.py"):
         assert f"binocular3dgs_torch/{module}" in names, module
 
 

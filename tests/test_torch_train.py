@@ -290,7 +290,12 @@ def test_binocular_step_matches_jax():
     assert int(gm.n_visible) == int(wm.n_visible)
     assert int(gm.num_pairs) == int(wm.num_pairs) and gm.pair_capacity == int(wm.pair_capacity)
     assert got.adam_step == int(want.adam_step) == 1
+    assert_first_step_state_close(got, want, m)
 
+
+def assert_first_step_state_close(got, want, m):
+    """The port's state after a first binocular step from the JAX model `m`
+    against the JAX step's state."""
     # adam_m of the first step is 0.1 * grad: each field within 1e-3 of its
     # own norm (the render gradients agree to ~1e-5 of their largest entry,
     # test_torch_render_grad.py; the warp and losses add float32 sums)
@@ -313,9 +318,10 @@ def test_binocular_step_matches_jax():
     np.testing.assert_array_equal(got.max_radii2d.numpy(), np.asarray(want.max_radii2d))
     assert got.denom.sum() > 0
     # padded rows are untouched
+    n_active = int(np.asarray(m.active).sum())
     for n in PARAM_NAMES:
-        np.testing.assert_array_equal(getattr(got.model.params, n).numpy()[40:],
-                                      np.asarray(getattr(m.params, n))[40:])
+        np.testing.assert_array_equal(getattr(got.model.params, n).numpy()[n_active:],
+                                      np.asarray(getattr(m.params, n))[n_active:])
 
 
 def test_step_without_binocular_skips_the_shift():
