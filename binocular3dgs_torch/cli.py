@@ -14,7 +14,9 @@ on the CPU):
 
 `train` writes `cfg_args.json`, checkpoints at `--checkpoint_iterations`,
 resumes from `--start_checkpoint <path|latest>` (a checkpoint of either
-package) and traces its first iterations into `--profile_dir`; `render` and
+package) and traces its first iterations into `--profile_dir` (the
+profiler's `trace.json`, with the program's ranges, and `ranges.json`, its
+ranges and counters as `tracing.snapshot()` gives them); `render` and
 `spiral` read the model settings from that file alone, as the JAX CLI does
 (their `--eval`, `-r`, `-i`, `-w` and `--sh_degree` are accepted and
 ignored; `-m` and `-s` apply). `train` leaves out the TPU-only `--backend`,
@@ -33,6 +35,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -151,11 +154,18 @@ def cmd_train(argv):
                   f"({entry.iters_per_sec:.2f} it/s)", flush=True)
 
     if args.profile_dir:
+        from . import tracing
+
         n_prof = min(args.iterations, first_iter + 200)
+        t_prof = time.time_ns()
         with _profile(device) as prof:
             trainer.train(n_prof, progress=progress, first_iteration=first_iter + 1)
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        # the program's ranges (in trace.json too) and its counters, on the
+        # trace's clock
+        with open(os.path.join(args.profile_dir, "ranges.json"), "w") as f:
+            json.dump(tracing.snapshot(since_ns=t_prof), f)
         first_iter = n_prof
         print(f"profiler trace written to {args.profile_dir}")
     trainer.train(args.iterations, progress=progress, first_iteration=first_iter + 1)

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..core.transforms import inverse_sigmoid, quat_to_rotmat
 from ..models.gaussians import _FILL, PARAM_NAMES, GaussianParams
 from ..train.state import TrainState, zeros_like_params
@@ -83,6 +84,7 @@ def _scatter_compact(
     pos = torch.cumsum(mask_cat.long(), dim=0) - 1
     target = torch.where(mask_cat & (pos < capacity), pos, capacity)  # capacity = drop slot
     n_after = min(int(mask_cat.sum()), capacity)
+    tracing.count("trainer.host_reads", 1)
     active = torch.arange(capacity, device=mask_cat.device) < n_after
 
     def scatter(blocks, sentinels):
@@ -164,7 +166,7 @@ def densify_and_prune(
         masks=[keep_orig, keep_clone, keep_split, keep_split],
         capacity=cap,
     )
-    n_wanted = int(keep_orig.sum()) + int(keep_clone.sum()) + 2 * int(keep_split.sum())
+    n_orig, n_clone, n_split = int(keep_orig.sum()), int(keep_clone.sum()), int(keep_split.sum())
     new_state = state.replace(
         model=dataclasses.replace(model, params=params, active=new_active),
         adam_m=m,
@@ -173,4 +175,11 @@ def densify_and_prune(
         denom=torch.zeros(cap, device=dev),
         max_radii2d=torch.zeros(cap, device=dev),
     )
-    return DensifyResult(new_state, int(active.sum()), n_after, n_wanted)
+    n_before = int(active.sum())
+    tracing.count("trainer.host_reads", 4)
+    # a split parent leaves and its two children stay; every other row that
+    # leaves is pruned
+    tracing.count("densify.cloned", n_clone)
+    tracing.count("densify.split", n_split)
+    tracing.count("densify.pruned", n_before - n_orig - n_split)
+    return DensifyResult(new_state, n_before, n_after, n_orig + n_clone + 2 * n_split)

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
+
 ALPHA_MIN = 1.0 / 255.0
 T_MIN = 1e-4
 ALPHA_CLAMP = 0.99
@@ -38,12 +40,6 @@ KERNEL_TILE_SIZE = 16
 # 1 - ALPHA_CLAMP as float32 (0.01f): the floor of 1 - alpha when the
 # backward divides the transmittance back (blend.py: one_minus)
 ONE_MINUS_FLOOR = 1.0 - ALPHA_CLAMP
-
-# Launches of each CUDA kernel since the last reset (a wrapper adds one per
-# launch and nowhere else). Read and reset by chip_smoke.py.
-blend_forward_launches = 0
-blend_backward_launches = 0
-
 
 def _tile_pixel_coords(TW: int, TH: int, ts: int, device):
     t = torch.arange(TW * TH, device=device)
@@ -279,7 +275,6 @@ def _check_kernel_inputs(name, ts, **tensors):
 
 
 def _launch(records, tile_start, tile_count, TW, TH, ts):
-    global blend_forward_launches
     from .cuda_build import load_library
 
     _check_kernel_inputs("blend_forward", ts, records=records, tile_start=tile_start,
@@ -296,12 +291,11 @@ def _launch(records, tile_start, tile_count, TW, TH, ts):
         )
     if err != 0:
         raise RuntimeError(f"blend_forward kernel launch failed: cudaError {err}")
-    blend_forward_launches += 1
+    tracing.launched("blend_forward")
     return out5, n_contrib
 
 
 def _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts):
-    global blend_backward_launches
     from .cuda_build import load_library
 
     d_out5 = d_out5.contiguous()
@@ -322,7 +316,7 @@ def _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, T
         )
     if err != 0:
         raise RuntimeError(f"blend_backward kernel launch failed: cudaError {err}")
-    blend_backward_launches += 1
+    tracing.launched("blend_backward")
     return d_records
 
 
@@ -362,6 +356,7 @@ class _BlendForward(torch.autograd.Function):
         return out5, n_contrib
 
     @staticmethod
+    @tracing.region("render.blend.backward")
     def backward(ctx, d_out5, d_n_contrib):
         d_records = blend_backward(*ctx.saved_tensors, d_out5, *ctx.grid)
         return d_records, None, None, None, None, None

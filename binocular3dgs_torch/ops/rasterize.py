@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..config import RasterConfig
 from ..core.camera import Camera
 from ..models.gaussians import GaussianModel
@@ -89,6 +89,7 @@ class _GatherRecords(torch.autograd.Function):
         return torch.index_select(fields_d, 1, index)
 
     @staticmethod
+    @tracing.region("render.gather.backward")
     def backward(ctx, d_records):
         (index,) = ctx.saved_tensors
         return segment_sum_columns(d_records, index, ctx.n), None
@@ -146,7 +147,8 @@ def render_tiled(
     camera = camera.to(device)
     model = model.to(device)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=device)
-    proj = project_for_render(camera, model, raster, mean2d_carrier)
+    with tracing.region("render.project"):
+        proj = project_for_render(camera, model, raster, mean2d_carrier)
     return rasterize_projected(camera, proj, bg, raster, tile_row_start, tile_rows)
 
 
@@ -170,19 +172,27 @@ def rasterize_projected(
         shift = torch.tensor([0.0, float(tile_row_start * ts)], device=proj.mean2d.device)
         proj = proj._replace(mean2d=proj.mean2d - shift)
 
-    binning = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, W, H, ts, pair_capacity)
-    fields_d = torch.index_select(_build_fields(proj), 1, binning.order)
-    records = _GatherRecords.apply(fields_d, _gather_index(binning, TW * TH))  # (10, P)
-    out5, _ = blend_forward(records, binning.tile_start, binning.tile_count, TW, TH, ts)
-    planes = _tiles_to_planes(out5, TW, TH, ts, H, W)
-    rgb, dep, T_final = planes[0:3], planes[3], planes[4]
-    return RenderOutput(
-        image=rgb + T_final[None] * bg[:, None, None],
-        depth=dep,
-        alpha=1.0 - T_final,
-        radii=proj.radius,
-        visible=proj.radius > 0,
-        num_pairs=binning.num_pairs,
-        max_tile_pairs=binning.tile_count.max(),
-        pair_capacity=pair_capacity,
-    )
+    with tracing.region("render.bin"):
+        binning = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, W, H, ts,
+                                pair_capacity)
+    tracing.count("render.rows", N)
+    tracing.count("render.pairs_wanted", binning.num_pairs)
+    tracing.count("render.pair_capacity", pair_capacity)
+    with tracing.region("render.gather"):
+        fields_d = torch.index_select(_build_fields(proj), 1, binning.order)
+        records = _GatherRecords.apply(fields_d, _gather_index(binning, TW * TH))  # (10, P)
+    with tracing.region("render.blend"):
+        out5, _ = blend_forward(records, binning.tile_start, binning.tile_count, TW, TH, ts)
+    with tracing.region("render.planes"):
+        planes = _tiles_to_planes(out5, TW, TH, ts, H, W)
+        rgb, dep, T_final = planes[0:3], planes[3], planes[4]
+        return RenderOutput(
+            image=rgb + T_final[None] * bg[:, None, None],
+            depth=dep,
+            alpha=1.0 - T_final,
+            radii=proj.radius,
+            visible=proj.radius > 0,
+            num_pairs=binning.num_pairs,
+            max_tile_pairs=binning.tile_count.max(),
+            pair_capacity=pair_capacity,
+        )

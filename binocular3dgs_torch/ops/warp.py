@@ -23,10 +23,7 @@ from __future__ import annotations
 
 import torch
 
-# Launches of each CUDA kernel since the last reset (a wrapper adds one per
-# launch and nowhere else). Read and reset by chip_smoke.py.
-warp_forward_launches = 0
-warp_backward_launches = 0
+from .. import tracing
 
 
 def _taps(disparity: torch.Tensor, W: int):
@@ -131,7 +128,6 @@ def _check(name, *tensors):
 def warp_forward(image: torch.Tensor, disparity: torch.Tensor):
     """W1: (out, diff) of the warp; the CUDA kernel for CUDA tensors,
     `warp_forward_torch` for CPU tensors."""
-    global warp_forward_launches
     _check("warp_forward", image, disparity)
     C, H, W = image.shape
     if disparity.shape != (H, W):
@@ -152,14 +148,13 @@ def warp_forward(image: torch.Tensor, disparity: torch.Tensor):
                                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp_forward kernel launch failed: cudaError {err}")
-    warp_forward_launches += 1
+    tracing.launched("warp_forward")
     return out, diff
 
 
 def warp_backward(disparity: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
     """W2: d_image of the warp; the CUDA kernel for CUDA tensors,
     `warp_backward_torch` for CPU tensors."""
-    global warp_backward_launches
     _check("warp_backward", d_out, disparity)
     C, H, W = d_out.shape
     if disparity.shape != (H, W):
@@ -178,7 +173,7 @@ def warp_backward(disparity: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
                                       d_image.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"warp_backward kernel launch failed: cudaError {err}")
-    warp_backward_launches += 1
+    tracing.launched("warp_backward")
     return d_image
 
 
@@ -190,6 +185,7 @@ class _InverseWarp(torch.autograd.Function):
         return out
 
     @staticmethod
+    @tracing.region("step.warp.backward")
     def backward(ctx, d_out):
         disparity, diff = ctx.saved_tensors
         d_image = warp_backward(disparity, d_out) if ctx.needs_input_grad[0] else None

@@ -24,6 +24,12 @@ draws views on the device: the view index from a `random.Random` and the
 shift and split noise from one `torch.Generator` on the CPU, both seeded
 with `cfg.train.seed`, so a run draws the same numbers on any device.
 
+While a profiler traces, the loop records its ranges (`trainer.train`,
+`trainer.fused_span`, `trainer.step` with its iteration, `trainer.read`,
+`trainer.grow_pairs`, `trainer.densify`) and counts `trainer.host_reads`:
+each read of a device value that its decisions, logs and reports need
+(checkpoints and PLY snapshots are not counted); see tracing.py.
+
 `render_fn` (JAX `Trainer(render_fn=)`) replaces the trainer's render, e.g.
 by the dense oracle or parallel/sharding.py's band-sharded render.
 
@@ -46,7 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..config import Config
 from ..data.dataset import Scene, View
 from ..models import densify as densify_mod
@@ -189,6 +195,7 @@ class Trainer:
                     n = min(n, m - it + 1)
         return max(n, 1)
 
+    @tracing.region("trainer.train")
     def train(self, iterations: int | None = None, progress=None, first_iteration: int = 1):
         cfg = self.cfg
         opt = cfg.opt
@@ -199,67 +206,72 @@ class Trainer:
 
         iteration = first_iteration
         while iteration <= iterations:
-            if iteration % 1000 == 0:
-                self.state = self.state.replace(model=self.state.model.one_up_sh_degree())
-            binocular = (
-                cfg.train.binocular_consistency and iteration > cfg.train.shift_cam_start
-            )
             last_it = iteration + self._fused_span(iteration, iterations, binocular_from) - 1
-            num_pairs, max_tile_pairs, logged = None, None, []
-            for it in range(iteration, last_it + 1):
-                view_idx = self.rng.randrange(len(self.views))
-                trans = self._draw_trans() if binocular else None
-                self.state, metrics = self.steps[binocular](
-                    self.state, self.cams[view_idx], self.gt_images[view_idx],
-                    self.alpha_weights[view_idx], it, trans, self.bg,
+            with tracing.region("trainer.fused_span", first=iteration, last=last_it):
+                if iteration % 1000 == 0:
+                    self.state = self.state.replace(model=self.state.model.one_up_sh_degree())
+                binocular = (
+                    cfg.train.binocular_consistency and iteration > cfg.train.shift_cam_start
                 )
-                # the span's pair pressure, kept on the device
-                if num_pairs is None:
-                    num_pairs, max_tile_pairs = metrics.num_pairs, metrics.max_tile_pairs
-                else:
-                    num_pairs = torch.maximum(num_pairs, metrics.num_pairs)
-                    max_tile_pairs = torch.maximum(max_tile_pairs, metrics.max_tile_pairs)
-                if cfg.pipeline.debug:
-                    self._check_loss(metrics, it)
-                if progress is not None and it % 10 == 0:
-                    logged.append((it, metrics))
+                num_pairs, max_tile_pairs, logged = None, None, []
+                for it in range(iteration, last_it + 1):
+                    with tracing.region("trainer.step", iteration=it):
+                        view_idx = self.rng.randrange(len(self.views))
+                        trans = self._draw_trans() if binocular else None
+                        self.state, metrics = self.steps[binocular](
+                            self.state, self.cams[view_idx], self.gt_images[view_idx],
+                            self.alpha_weights[view_idx], it, trans, self.bg,
+                        )
+                    # the span's pair pressure, kept on the device
+                    if num_pairs is None:
+                        num_pairs, max_tile_pairs = metrics.num_pairs, metrics.max_tile_pairs
+                    else:
+                        num_pairs = torch.maximum(num_pairs, metrics.num_pairs)
+                        max_tile_pairs = torch.maximum(max_tile_pairs, metrics.max_tile_pairs)
+                    if cfg.pipeline.debug:
+                        self._check_loss(metrics, it)
+                    if progress is not None and it % 10 == 0:
+                        logged.append((it, metrics))
 
-            # the span's one read: the pair pressure, the logged losses and
-            # the point count
-            values = [num_pairs, max_tile_pairs]
-            for _, m in logged:
-                values += [m.loss, m.disparity_loss]
-            if logged:
-                values.append(self.state.model.count())
-            read = torch.stack([v.to(torch.float64) for v in values]).tolist()
-            self._maybe_grow_pair_capacity(int(read[0]), int(read[1]), metrics.pair_capacity,
-                                           last_it)
+                # the span's one read: the pair pressure, the logged losses and
+                # the point count
+                values = [num_pairs, max_tile_pairs]
+                for _, m in logged:
+                    values += [m.loss, m.disparity_loss]
+                if logged:
+                    values.append(self.state.model.count())
+                with tracing.region("trainer.read"):
+                    read = torch.stack([v.to(torch.float64) for v in values]).tolist()
+                tracing.count("trainer.host_reads", 1)
+                self._maybe_grow_pair_capacity(int(read[0]), int(read[1]), metrics.pair_capacity,
+                                               last_it)
 
-            densify = (opt.densify_from_iter < last_it < densify_until
-                       and last_it % opt.densification_interval == 0)
-            if densify:
-                self._densify()
+                densify = (opt.densify_from_iter < last_it < densify_until
+                           and last_it % opt.densification_interval == 0)
+                if densify:
+                    self._densify()
 
-            if logged:
-                now = time.time()
-                ips = (last_it - last_read_it) / max(now - last_read_t, 1e-9)
-                last_read_t, last_read_it = now, last_it
-                for k, (it, _) in enumerate(logged):
-                    points = int(read[-1])
-                    if it == last_it and densify:
-                        points = int(self.state.model.count())
-                    entry = TrainerLogEntry(iteration=it, loss=read[2 + 2 * k],
-                                            disparity_loss=read[3 + 2 * k], points=points,
-                                            iters_per_sec=ips)
-                    self.log.append(entry)
-                    progress(entry)
+                if logged:
+                    now = time.time()
+                    ips = (last_it - last_read_it) / max(now - last_read_t, 1e-9)
+                    last_read_t, last_read_it = now, last_it
+                    for k, (it, _) in enumerate(logged):
+                        points = int(read[-1])
+                        if it == last_it and densify:
+                            points = int(self.state.model.count())
+                            tracing.count("trainer.host_reads", 1)
+                        entry = TrainerLogEntry(iteration=it, loss=read[2 + 2 * k],
+                                                disparity_loss=read[3 + 2 * k], points=points,
+                                                iters_per_sec=ips)
+                        self.log.append(entry)
+                        progress(entry)
 
-            if last_it in cfg.train.test_iterations:
-                self.report(last_it)
-            if last_it in cfg.train.save_iterations:
-                self.save(last_it)
-            if last_it in cfg.train.checkpoint_iterations:
-                self.save_checkpoint(last_it)
+                if last_it in cfg.train.test_iterations:
+                    self.report(last_it)
+                if last_it in cfg.train.save_iterations:
+                    self.save(last_it)
+                if last_it in cfg.train.checkpoint_iterations:
+                    self.save_checkpoint(last_it)
             iteration = last_it + 1
         return self.state
 
@@ -267,12 +279,14 @@ class Trainer:
         """--detect_anomaly analogue (reference train.py:272,297): on a
         non-finite loss, dump the state, then abort."""
         loss = float(metrics.loss)
+        tracing.count("trainer.host_reads", 1)
         if not np.isfinite(loss):
             path = os.path.join(self.cfg.model.model_path or ".", f"anomaly_{iteration}.npz")
             save_checkpoint(self.state, iteration, path)
             raise FloatingPointError(
                 f"non-finite loss {loss} at iteration {iteration}; state dumped to {path}")
 
+    @tracing.region("trainer.grow_pairs")
     def _maybe_grow_pair_capacity(self, wanted: int, max_tile: int, cap: int, iteration: int):
         """When the wanted (tile, gaussian) pairs near the capacity, the
         deepest splats would vanish from renders and gradients: double
@@ -290,6 +304,7 @@ class Trainer:
                   f"{self.raster.pairs_per_gaussian} (wanted {wanted} pairs, max tile "
                   f"{max_tile})")
 
+    @tracing.region("trainer.densify")
     def _densify(self):
         cfg = self.cfg
         # reference train.py:183-186: the binocular protocol forces the size
@@ -343,6 +358,7 @@ class Trainer:
                     v.image.transpose(2, 0, 1))).to(self.device), 0.0, 1.0)
                 l1s.append(float(l1_loss(img, gt)))
                 psnrs.append(float(psnr(img, gt)))
+                tracing.count("trainer.host_reads", 2)
             results[name] = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs))}
             print(f"\n[ITER {iteration}] Evaluating {name}: L1 {np.mean(l1s)} "
                   f"PSNR {np.mean(psnrs)}")

@@ -25,6 +25,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from .. import tracing
 from ..config import Config
 from ..core.camera import Camera, shift_camera
 from ..core.transforms import inverse_sigmoid
@@ -81,23 +82,26 @@ def compute_losses(
     out = render_fn(camera, model, bg, mean2d_carrier=carrier)
     pressure = _pressure(out)
 
-    Ll1 = l1_loss(out.image, gt_image)
-    loss = (1.0 - lambda_dssim) * Ll1 + lambda_dssim * (1.0 - ssim(out.image, gt_image))
+    with tracing.region("step.loss.photo"):
+        Ll1 = l1_loss(out.image, gt_image)
+        loss = (1.0 - lambda_dssim) * Ll1 + lambda_dssim * (1.0 - ssim(out.image, gt_image))
 
     disparity_loss = torch.zeros((), device=gt_image.device)
     if trans is not None:
-        out_s = render_fn(shift_camera(camera, trans), model, bg, mean2d_carrier=None)
-        pressure = _pressure(out_s, pressure)
-        disparity = camera.focal_x * (-trans) / (out.depth + 1e-5)
-        warped = inverse_warp_image(out_s.image, disparity)
-        mask = warp_mask(disparity, camera.height, camera.width)
-        disparity_loss = l1_loss(warped, gt_image, mask=mask) + 0.05 * smooth_loss(
-            disparity * mask, gt_image
-        )
+        with tracing.region("step.loss.disparity"):
+            out_s = render_fn(shift_camera(camera, trans), model, bg, mean2d_carrier=None)
+            pressure = _pressure(out_s, pressure)
+            disparity = camera.focal_x * (-trans) / (out.depth + 1e-5)
+            warped = inverse_warp_image(out_s.image, disparity)
+            mask = warp_mask(disparity, camera.height, camera.width)
+            disparity_loss = l1_loss(warped, gt_image, mask=mask) + 0.05 * smooth_loss(
+                disparity * mask, gt_image
+            )
 
     alpha_l = torch.zeros((), device=gt_image.device)
     if alpha_weight is not None:
-        alpha_l = torch.mean(torch.abs(out.alpha) * alpha_weight)
+        with tracing.region("step.loss.alpha"):
+            alpha_l = torch.mean(torch.abs(out.alpha) * alpha_weight)
 
     total = loss + disparity_loss + alpha_l
     aux = {
@@ -146,24 +150,27 @@ def make_train_step(
         leaves = {n: getattr(model.params, n).detach().requires_grad_(True) for n in PARAM_NAMES}
         carrier = torch.zeros(model.capacity, 2, device=model.params.xyz.device,
                               requires_grad=True)
-        total, aux = compute_losses(
-            render_fn,
-            dataclasses.replace(model, params=GaussianParams(**leaves)),
-            camera,
-            gt_image,
-            alpha_weight if use_alpha_weight else None,
-            bg,
-            carrier,
-            trans if binocular else None,
-            opt.lambda_dssim,
-        )
-        grad_list = torch.autograd.grad(total, [*leaves.values(), carrier], allow_unused=True)
-        grad_list = [torch.zeros_like(x) if g is None else g
-                     for x, g in zip([*leaves.values(), carrier], grad_list)]
+        with tracing.region("step.forward"):
+            total, aux = compute_losses(
+                render_fn,
+                dataclasses.replace(model, params=GaussianParams(**leaves)),
+                camera,
+                gt_image,
+                alpha_weight if use_alpha_weight else None,
+                bg,
+                carrier,
+                trans if binocular else None,
+                opt.lambda_dssim,
+            )
+        with tracing.region("step.backward"):
+            grad_list = torch.autograd.grad(total, [*leaves.values(), carrier],
+                                            allow_unused=True)
+            grad_list = [torch.zeros_like(x) if g is None else g
+                         for x, g in zip([*leaves.values(), carrier], grad_list)]
         grads = GaussianParams(**dict(zip(PARAM_NAMES, grad_list[:-1])))
         carrier_grad = grad_list[-1]
 
-        with torch.no_grad():
+        with torch.no_grad(), tracing.region("step.update"):
             params = model.params
             # opacity decay (reference train.py:171-173), before the Adam
             # step, on the pre-update parameters; grads stay those of the
@@ -190,12 +197,14 @@ def make_train_step(
             step = update(params, grads, state.adam_m, state.adam_v, state.adam_step,
                           group_lrs(opt, xyz_lr(iteration)), model.active)
 
+        n_visible = visible.sum()
+        tracing.count("step.visible", n_visible)
         metrics = StepMetrics(
             loss=aux["loss"],
             l1=aux["l1"],
             disparity_loss=aux["disparity_loss"],
             alpha_loss=aux["alpha_loss"],
-            n_visible=visible.sum(),
+            n_visible=n_visible,
             num_pairs=aux["num_pairs"],
             max_tile_pairs=aux["max_tile_pairs"],
             pair_capacity=aux["pair_capacity"],

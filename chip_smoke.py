@@ -644,10 +644,10 @@ def phase_main_path(torch, model, device, raster):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    blend_cuda.blend_forward_launches = 0
+    launch_counts(reset=True)
     outs = [render_tiled(cam, model, bg, raster=raster, device=device) for cam in cams]
     torch.cuda.synchronize()
-    launches = blend_cuda.blend_forward_launches
+    launches = launch_counts()["blend_forward"]
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     log(f"[5 main] {N_VIEWS} renders, blend_forward launches {launches}, peak memory "
@@ -795,18 +795,17 @@ def phase_entry_point(torch, model, scene, work):
     from binocular3dgs_torch import cli
     from binocular3dgs_torch.config import Config, save_config
     from binocular3dgs_torch.models.gaussians import save_ply
-    from binocular3dgs_torch.ops import blend_cuda
 
     out = os.path.join(work, "model")
     save_ply(model, os.path.join(out, "point_cloud", "iteration_1", "point_cloud.ply"))
     cfg = Config()
     cfg.model.eval = True  # cli render takes its settings from this file alone
     save_config(cfg, os.path.join(out, "cfg_args.json"))
-    before = blend_cuda.blend_forward_launches
+    launch_counts(reset=True)
     t0 = time.perf_counter()
     check(cli.main(["render", "-m", out, "-s", scene]) == 0, "cli render failed")
     t_render = time.perf_counter() - t0
-    n_render = blend_cuda.blend_forward_launches - before
+    n_render = launch_counts()["blend_forward"]
     for split, n in (("train", 3), ("test", 2)):
         d = os.path.join(out, split, "ours_1", "renders")
         check(os.path.isdir(d) and len(os.listdir(d)) == n, f"expected {n} {split} renders")
@@ -822,16 +821,18 @@ def phase_entry_point(torch, model, scene, work):
     return dict(psnr=res["PSNR"], ssim=res["SSIM"], render_s=t_render, metrics_s=t_metrics)
 
 
-def launch_counts(reset=False):
-    """The four kernels' launch counters; with `reset`, set them to 0."""
-    from binocular3dgs_torch.ops import blend_cuda, warp
+_LAUNCH_BASE = {}
 
-    counters = ((blend_cuda, "blend_forward"), (blend_cuda, "blend_backward"),
-                (warp, "warp_forward"), (warp, "warp_backward"))
+
+def launch_counts(reset=False):
+    """The four kernels' launches (binocular3dgs_torch.tracing) since the
+    last call with `reset`."""
+    from binocular3dgs_torch import tracing
+
+    now = tracing.launches()
     if reset:
-        for mod, name in counters:
-            setattr(mod, f"{name}_launches", 0)
-    return {name: getattr(mod, f"{name}_launches") for mod, name in counters}
+        _LAUNCH_BASE.update(now)
+    return {name: n - _LAUNCH_BASE.get(name, 0) for name, n in now.items()}
 
 
 def train_setup(torch, seed, device, n=N_GAUSS, width=W, height=H):

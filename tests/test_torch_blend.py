@@ -13,7 +13,7 @@ import torch
 from binocular3dgs_tpu.ops.binning import bin_gaussians, tile_grid
 from binocular3dgs_tpu.ops.blend_pallas import blend_forward_pallas
 from binocular3dgs_tpu.ops.rasterize import _build_fields, project_for_render
-from binocular3dgs_torch.ops import blend_cuda
+from binocular3dgs_torch import tracing
 from binocular3dgs_torch.ops.blend_cuda import (
     ALPHA_MIN,
     _alpha_extent,
@@ -131,11 +131,11 @@ def test_wrapper_cpu_is_plain_version():
     records, ts_j, tc_j, TW, TH = jax_records(SCENES["random0"]())
     args = (torch.from_numpy(np.array(records)), torch.from_numpy(np.array(ts_j)),
             torch.from_numpy(np.array(tc_j)), TW, TH, TS)
-    before = blend_cuda.blend_forward_launches
+    before = tracing.launches()["blend_forward"]
     out5, nc = blend_forward(*args)
     want5, want_nc = blend_forward_torch(*args)
     assert torch.equal(out5, want5) and torch.equal(nc, want_nc)
-    assert blend_cuda.blend_forward_launches == before  # no kernel launch on the CPU
+    assert tracing.launches()["blend_forward"] == before  # no kernel launch on the CPU
 
 
 def test_wrapper_rejects_bad_inputs_and_backward():

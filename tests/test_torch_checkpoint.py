@@ -345,6 +345,12 @@ def test_cli_profile_dir_writes_a_trace(trained, tmp_path, capsys):
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "aten::index_select" in names  # the record gathers of the renders
+    # the program's own ranges, in the trace and with its counters beside it
+    assert {"trainer.step", "step.backward", "render.blend", "trainer.read"} <= names
+    with open(os.path.join(prof, "ranges.json")) as f:
+        snap = json.load(f)
+    assert sum(r["name"] == "trainer.step" for r in snap["ranges"]) == 10
+    assert {"render.pairs_wanted", "trainer.host_reads"} <= {c["name"] for c in snap["counters"]}
     with open(os.path.join(out, "train_log.json")) as f:
         assert [e["iteration"] for e in json.load(f)] == [10]  # all 10 ran, profiled
 

@@ -1,7 +1,9 @@
 """Tests that need a CUDA card: the hand-written kernels (blend forward B1,
 blend backward B2, warp forward W1 and backward W2) against their plain
 PyTorch versions, and their launch counters around a render and a training
-step; a training step that repeats bit for bit; the dense init's Farneback
+step; a training step that repeats bit for bit; the port's ranges on the
+profiler's device clock, and a traced span of the trainer that syncs no
+more than an untraced one; the dense init's Farneback
 flow and growth scorer, and one PDCNet+ pass, RANSAC and warp, on the card
 against the CPU; a band render over two gloo ranks on the card against the
 single render. They skip without a card.
@@ -12,14 +14,17 @@ machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from binocular3dgs_torch import tracing
 from binocular3dgs_torch.core.camera import make_camera
 from binocular3dgs_torch.models.gaussians import from_numpy
 from binocular3dgs_torch.config import Config, RasterConfig
-from binocular3dgs_torch.ops import blend_cuda, warp
+from binocular3dgs_torch.ops import warp
 from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
 from binocular3dgs_torch.ops.blend_cuda import (
     blend_backward,
@@ -90,10 +95,10 @@ SCENES = [
 def test_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elongated):
     model, cam = scene(seed, n, w, h, cuda_device, opacity, elongated=elongated)
     records, start, count, TW, TH = records_for(model, cam)
-    before = blend_cuda.blend_forward_launches
+    before = tracing.launches()["blend_forward"]
     out5, nc = blend_forward(records, start, count, TW, TH, TS)
     torch.cuda.synchronize()
-    assert blend_cuda.blend_forward_launches == before + 1
+    assert tracing.launches()["blend_forward"] == before + 1
     want5, want_nc = blend_forward_torch(records, start, count, TW, TH, TS)
     # FMA contraction and summation order differ from the plain version;
     # O(1) planes agree to a few float32 ulps of the running sums
@@ -107,10 +112,10 @@ def test_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elongated):
 @pytest.mark.cuda
 def test_render_counts_one_launch(cuda_device):
     model, cam = scene(3, 100, 64, 48, cuda_device)
-    before = blend_cuda.blend_forward_launches
+    before = tracing.launches()["blend_forward"]
     out = render_tiled(cam, model, [0.0, 0.0, 0.0], device=cuda_device)
     torch.cuda.synchronize()
-    assert blend_cuda.blend_forward_launches == before + 1
+    assert tracing.launches()["blend_forward"] == before + 1
     assert out.image.shape == (3, 48, 64) and torch.isfinite(out.image).all()
 
 
@@ -122,10 +127,10 @@ def test_backward_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elon
     out5, nc = blend_forward_torch(records, start, count, TW, TH, TS)
     g = torch.Generator().manual_seed(seed)
     d_out5 = torch.randn(out5.shape, generator=g).to(cuda_device)
-    before = blend_cuda.blend_backward_launches
+    before = tracing.launches()["blend_backward"]
     got = blend_backward(records, start, count, out5, nc, d_out5, TW, TH, TS)
     torch.cuda.synchronize()
-    assert blend_cuda.blend_backward_launches == before + 1
+    assert tracing.launches()["blend_backward"] == before + 1
     want = blend_backward_torch(records, start, count, out5, nc, d_out5, TW, TH, TS)
     # transmittance rebuilt by one reciprocal per pair here, by chunk suffix
     # products there, and the pixel sums in another order: each of the ten
@@ -143,12 +148,12 @@ def test_warp_kernels_match_plain(cuda_device, spread):
     image = torch.rand(3, 75, 101, generator=g).to(cuda_device)
     disp = ((torch.rand(75, 101, generator=g) - 0.5) * spread).to(cuda_device)
     d_out = torch.randn(3, 75, 101, generator=g).to(cuda_device)
-    before = (warp.warp_forward_launches, warp.warp_backward_launches)
+    before = tracing.launches()
     out, diff = warp.warp_forward(image, disp)
     d_img = warp.warp_backward(disp, d_out)
     torch.cuda.synchronize()
-    assert (warp.warp_forward_launches, warp.warp_backward_launches) == (before[0] + 1,
-                                                                      before[1] + 1)
+    after = tracing.launches()
+    assert [after[k] - before[k] for k in ("warp_forward", "warp_backward")] == [1, 1]
     want_out, want_diff = warp.warp_forward_torch(image, disp)
     # the same two float32 products (no FMA contraction on either side)
     assert (out - want_out).abs().max().item() <= 1e-6
@@ -227,14 +232,11 @@ def test_train_step_counts_launches(cuda_device):
         Config(), 1.0, binocular=True, use_alpha_weight=False)
     gt = torch.rand(3, 64, 96, generator=torch.Generator().manual_seed(0)).to(cuda_device)
     aw = torch.zeros(64, 96, device=cuda_device)
-    counters = ("blend_forward_launches", "blend_backward_launches")
-    before = [getattr(blend_cuda, c) for c in counters] + [warp.warp_forward_launches,
-                                                           warp.warp_backward_launches]
+    before = tracing.launches()
     state, metrics = step(state, cam, gt, aw, 2, 0.2, torch.zeros(3, device=cuda_device))
     torch.cuda.synchronize()
-    after = [getattr(blend_cuda, c) for c in counters] + [warp.warp_forward_launches,
-                                                          warp.warp_backward_launches]
-    assert [a - b for a, b in zip(after, before)] == [2, 2, 1, 1]
+    after = tracing.launches()
+    assert [after[k] - before[k] for k in tracing.KERNELS] == [2, 2, 1, 1]
     assert torch.isfinite(metrics.loss) and float(metrics.disparity_loss) > 0
 
 
@@ -271,6 +273,94 @@ def test_train_step_repeats_bit_for_bit(cuda_device):
     (a, la), (b, lb) = runs
     assert la == lb
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_a_range_holds_its_kernels_on_the_device_clock(cuda_device):
+    """A range around a matrix product and a synchronize holds the
+    product's kernels as the profiler stamps them on the device: the
+    ranges' clock is the device events' clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(2048, 2048, device=cuda_device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tracing.region("probe.mm"):
+            a @ a
+            torch.cuda.synchronize()
+    probe = [r for r in tracing.snapshot()["ranges"] if r["name"] == "probe.mm"][-1]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    kernels = [e for e in events if not e.is_user_annotation()]
+    print(f"{len(kernels)} device events, {len(events) - len(kernels)} device annotations")
+    assert kernels
+    for e in kernels:
+        start, end = e.start_ns(), e.start_ns() + e.duration_ns()
+        print(f"{e.name()[:60]}: starts {start - probe['start_ns']} ns after the range, "
+              f"ends {probe['end_ns'] - end} ns before its end")
+        assert probe["start_ns"] <= start and end <= probe["end_ns"]
+
+
+def toy_trainer(device):
+    """A trainer of a 3-view toy scene (30 points, 40x30) after 16
+    iterations: its next steps are binocular, and iterations 17-20 are one
+    span that ends in a densification."""
+    from binocular3dgs_torch.data.dataset import Scene, View
+    from binocular3dgs_torch.data.ply import PointCloud
+    from binocular3dgs_torch.data.readers import SceneInfo
+    from binocular3dgs_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(30, 3)) * 0.4 + [0, 0, 4]
+    views = [View(make_camera(np.eye(3), np.array([tx, 0.0, 0.0]), 0.9, 0.7, 40, 30,
+                              device="cpu"),
+                  rng.random((30, 40, 3)).astype(np.float32), None, f"v{i}", i, i)
+             for i, tx in enumerate((-0.1, 0.0, 0.1))]
+    info = SceneInfo(PointCloud(points=pts, colors=rng.random((30, 3))), [], [],
+                     {"radius": 1.0, "translate": np.zeros(3)}, None)
+    cfg = Config()
+    cfg.opt.densify_from_iter, cfg.opt.densification_interval = 5, 10
+    cfg.opt.densify_grad_threshold = 1e-5
+    cfg.train.shift_cam_start = 15
+    cfg.train.test_iterations = cfg.train.save_iterations = ()
+    trainer = Trainer(cfg, Scene(views, [], 1.0, info), device=device)
+    trainer.train(16)
+    return trainer
+
+
+@pytest.mark.cuda
+def test_tracing_adds_no_sync_to_a_span(cuda_device):
+    """Under the sync debug mode, one fused span of binocular steps (17-20,
+    with its read and densification) warns no more often while a profiler
+    traces than without one; the traced span records the backward's ranges
+    from autograd's device thread."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def span_syncs(trainer):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                trainer.train(20, first_iteration=17)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+
+    off = span_syncs(toy_trainer(cuda_device))
+    trainer = toy_trainer(cuda_device)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        main = threading.get_ident()
+        on = span_syncs(trainer)
+    print(f"sync warnings in the span: {len(off)} untraced, {len(on)} traced")
+    assert len(on) <= len(off)
+    backward = [r for r in tracing.snapshot()["ranges"] if r["name"] == "render.blend.backward"
+                and r["iteration"] in range(17, 21)]
+    assert len(backward) == 8 and all(r["thread"] != main for r in backward)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ import torch
 
 from binocular3dgs_tpu.config import RasterConfig as JaxRasterConfig
 from binocular3dgs_tpu.ops.rasterize import render_tiled as jax_render_tiled
+from binocular3dgs_torch import tracing
 from binocular3dgs_torch.models.gaussians import PARAM_NAMES, GaussianParams
 from binocular3dgs_torch.ops import blend_cuda
 from binocular3dgs_torch.ops.blend_cuda import blend_backward, blend_backward_torch
@@ -117,11 +118,11 @@ def test_backward_wrapper_cpu_is_plain_version():
     args = [torch.from_numpy(np.array(x)) for x in (records, ts_j, tc_j)]
     out5, nc = blend_cuda.blend_forward_torch(*args, TW, TH, 16)
     d_out5 = torch.from_numpy(np.random.default_rng(0).normal(size=out5.shape).astype(np.float32))
-    before = blend_cuda.blend_backward_launches
+    before = tracing.launches()["blend_backward"]
     got = blend_backward(*args, out5, nc, d_out5, TW, TH, 16)
     want = blend_backward_torch(*args, out5, nc, d_out5, TW, TH, 16)
     assert torch.equal(got, want) and got.shape == args[0].shape
-    assert blend_cuda.blend_backward_launches == before
+    assert tracing.launches()["blend_backward"] == before
     # rows past the 10 live ones and slots past the walked pairs stay 0
     assert not got[10:].any()
     walked = torch.zeros(got.shape[1], dtype=torch.bool)

@@ -17,6 +17,7 @@ import torch
 from binocular3dgs_tpu.ops.warp import inverse_warp_image as jax_warp
 from binocular3dgs_tpu.ops.warp import warp_mask as jax_warp_mask
 from binocular3dgs_tpu.ops.warp_pallas import warp_backward_pallas, warp_forward_pallas
+from binocular3dgs_torch import tracing
 from binocular3dgs_torch.ops import warp
 from binocular3dgs_torch.ops.warp import (
     inverse_warp_image,
@@ -227,12 +228,12 @@ def test_backward_cpu_calls_are_bit_identical():
 def test_wrappers_cpu_are_plain_versions():
     img, disp, ct = case("fractional", seed=4)
     i, d, g = (torch.from_numpy(x) for x in (img, disp, ct))
-    before = (warp.warp_forward_launches, warp.warp_backward_launches)
+    before = tracing.launches()
     out, diff = warp_forward(i, d)
     want_out, want_diff = warp_forward_torch(i, d)
     assert torch.equal(out, want_out) and torch.equal(diff, want_diff)
     assert torch.equal(warp_backward(d, g), warp_backward_torch(d, g))
-    assert (warp.warp_forward_launches, warp.warp_backward_launches) == before
+    assert tracing.launches() == before
     with pytest.raises(ValueError):
         warp_forward(i.double(), d)
     with pytest.raises(ValueError):

@@ -116,7 +116,7 @@ def main(inputs, out_dir, init_method, world, rank):
 
 
 def card_main(out_dir, init_method, world, rank):
-    from binocular3dgs_torch.ops import blend_cuda
+    from binocular3dgs_torch import tracing
     from test_torch_cuda import CARD_BAND_RASTER, CARD_BAND_SCENE, scene
 
     torch.cuda.set_device(0)
@@ -125,12 +125,12 @@ def card_main(out_dir, init_method, world, rank):
         mesh = make_mesh("cuda")
         model, cam = scene(*CARD_BAND_SCENE, mesh.device)
         render = make_sharded_render(mesh, cam.width, cam.height, CARD_BAND_RASTER)
-        before = blend_cuda.blend_forward_launches
+        before = tracing.launches()["blend_forward"]
         with torch.no_grad():
             out = render(cam, model, [0.0, 0.0, 0.0])
         torch.cuda.synchronize()
         res = {k: getattr(out, k).cpu().numpy() for k in ("image", "depth", "alpha", "radii")}
-        res["launches"] = np.asarray(blend_cuda.blend_forward_launches - before)
+        res["launches"] = np.asarray(tracing.launches()["blend_forward"] - before)
         res["pairs"] = np.asarray([int(out.num_pairs), out.pair_capacity])
         np.savez(f"{out_dir}/rank{rank}.npz", **res)
     finally:
