@@ -101,12 +101,14 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             signatures = {
                 "b3dgs_blend_forward": [P, LL, P, P, I, I, P, P, P],
                 "b3dgs_blend_backward": [P, LL, P, P, P, P, P, I, I, P, P],
                 "b3dgs_warp_forward": [P, P, I, I, I, P, P, P],
                 "b3dgs_warp_backward": [P, P, I, I, I, P, P],
+                "b3dgs_project_forward": [P] * 13 + [LL, I, I, I, I, F, F] + [P] * 9,
+                "b3dgs_project_backward": [P] * 12 + [LL, I, I, I, I, F, F] + [P] * 13,
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -24,8 +24,9 @@ the pairs are sorted by gaussian (a stable sort) and each gaussian's
 segment is summed in pair order, so a training step repeats bit for bit.
 The depth reorder keeps autograd's `index_add_`: a permutation adds one
 term onto each zero, which no order changes.
-The vertex stage is plain autograd down to the parameters and the optional
-`mean2d_carrier`.
+The vertex stage's gradient down to the parameters and the optional
+`mean2d_carrier` is plain autograd on the CPU and its own backward kernel
+on a card (ops/project.py).
 Serving callers render under `torch.no_grad()`.
 
 Static capacity: `pair_capacity = pairs_per_gaussian * N`; overflowing

@@ -19,7 +19,8 @@ width and fails (non-zero exit) if any phase fails:
      [0.02, 0.05], opacities in [0.88, 0.99], pairs_per_gaussian doubled
      until no pair overflows), where most pixels terminate early
   5. main path: 8 views on an arc through render_tiled on the card, with
-     the kernel launch counts read around exactly that run; render and
+     the kernel launch counts read around exactly that run (8 blend forward,
+     8 vertex forward, no vertex backward); render and
      per-stage times; an end-to-end check against the plain blend and a
      small-input check against the dense oracle
   6. entry point: `cli render` and `cli metrics` in-process on a fabricated
@@ -37,7 +38,8 @@ width and fails (non-zero exit) if any phase fails:
   9. training main path: the bench.py workload through
      `make_train_step(binocular=True)`, 3 warm-up and 10 timed steps with the
      launch counters read around exactly the timed ones (2 blend forward, 2
-     blend backward, 1 warp forward, 1 warp backward per step); step time,
+     blend backward, 1 warp forward, 1 warp backward, 2 vertex forward and 2
+     vertex backward per step); step time,
      per-stage times, peak memory, device busy share and top kernels; one
      step at 5k gaussians and 256x192 on the card against the CPU
  10. entry point: `cli train` (densification and the binocular branch
@@ -50,8 +52,9 @@ width and fails (non-zero exit) if any phase fails:
      --profile_dir`: the state the resumed trainer steps from equal to
      chkpnt30.npz bit for bit (every buffer, adam_step 30, SH degrees and
      spatial_lr_scale), iteration 60 reached with a finite loss, 2 blend forward,
-     2 blend backward, 1 warp forward and 1 warp backward launch per resumed
-     step, and the four kernels named in the trace
+     2 blend backward, 1 warp forward, 1 warp backward, 2 vertex forward and
+     2 vertex backward launches per resumed step, and the six kernels named
+     in the trace
  12. `cli spiral --n_frames 8 --no_video` of the phase-10 model at 1008x756
      (the scene's poses_bounds.npy): 24 PNGs, 8 blend forward launches,
      something rendered in every frame; ms per frame
@@ -100,7 +103,7 @@ width and fails (non-zero exit) if any phase fails:
      against `render_tiled` (image and alpha 1e-5, depth 1e-4, radii
      equal), B1 launched once; one sharded step against the single step
      (loss 1e-5 relative, adam_m and grad_accum within 1e-3 of their norms),
-     launches 2/2/1/1; where the capacity divides: `shard_gaussians`
+     launches 2/2/1/1/2/2; where the capacity divides: `shard_gaussians`
      against the replicated render (the same tolerances), 3 `shard_adam`
      steps against 3 replicated ones bit for bit with capacity/ranks moment
      rows, and the replicated run twice bit for bit; then the step median
@@ -109,6 +112,13 @@ width and fails (non-zero exit) if any phase fails:
  21. `dryrun_multihost(2, 1)` on the card over gloo (both ranks' losses
      equal, within 1e-6 of one rank); one rank over nccl against one over
      gloo, bit for bit (NCCL refuses two ranks on one card)
+ 22. (run after phase 8) the vertex stage's kernels at the benchmark cells'
+     row counts (1,048,576 rows at 2016x1512, 262,144 at 400x400, SH
+     degree 1, with the carrier): the forward against project_gaussians on
+     the card, bit for bit in every field, the backward against autograd
+     and against project_backward_torch; device times with L2
+     flushed beside their byte bounds, the plain version's time and device
+     operations per call
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -162,6 +172,18 @@ WARP_FWD_BYTES_PER_PIXEL, WARP_BWD_BYTES_PER_PIXEL = 40, 28
 WARP_NO_LIBRARY = ("none: grid_sample zeroes each out-of-range tap, the warp zeroes the "
                    "whole pixel, so no single PyTorch call computes the same function")
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# the vertex stage's kernels (phase 22) at the benchmark cells' row counts
+# (benchmark/configs: capacity rows, active gaussians, image size), SH
+# degree 1, with the densification carrier as in a training step's main
+# render. Bytes a row: the forward reads xyz 12, f_dc 12, f_rest 36, opacity
+# 4, scaling 12, rotation 16, active 1 and the carrier 8, and writes mean2d
+# 8, depth 4, conic 12, color 12, opacity 4, radius 4, visible 1 and
+# bin_extent 8; the backward reads the leaves (93) and the five cotangents
+# (40) and writes the six leaves' gradients and the carrier's (100)
+VERTEX_SHAPES = (("llff3", 1_048_576, 285_523, 2016, 1512),
+                 ("blender8", 262_144, 100_000, 400, 400))
+VERTEX_FWD_BYTES_PER_ROW, VERTEX_BWD_BYTES_PER_ROW = 101 + 53, 133 + 100
+VERTEX_NO_TPU_KERNEL = "none: the JAX vertex stage (binocular3dgs_tpu/ops/project.py) is XLA"
 
 W, H, N_GAUSS, PAIRS_PER_GAUSSIAN = 1008, 756, 100_000, 6
 # the overdraw shape of phases 4 and 7: make_workload's draw with large,
@@ -609,6 +631,156 @@ def phase_warp_parity(torch, view0, seed, trans=0.2, tag="[8 warp]"):
     return res
 
 
+def vertex_rows(seed, n, active_n, width, height, device):
+    """(model, camera) of `n` capacity rows, the first `active_n` drawn as
+    make_workload draws (SH degree 1, rest bands drawn too), the others the
+    model's padding (zeros, log-scale -20, the identity quaternion); a
+    camera turned about two axes, so that no product with it is exact."""
+    from binocular3dgs_torch.core.camera import make_camera
+    from binocular3dgs_torch.models.gaussians import from_numpy
+
+    rng = np.random.default_rng(seed)
+    a = active_n
+    q = rng.normal(size=(a, 4))
+    params = dict(xyz=np.zeros((n, 3)), f_dc=np.zeros((n, 1, 3)), f_rest=np.zeros((n, 3, 3)),
+                  opacity=np.zeros((n, 1)), scaling=np.full((n, 3), -20.0),
+                  rotation=np.tile([1.0, 0.0, 0.0, 0.0], (n, 1)))
+    params["xyz"][:a] = np.stack([rng.uniform(-2, 2, a), rng.uniform(-1.5, 1.5, a),
+                                  rng.uniform(3, 9, a)], 1)
+    params["f_dc"][:a] = rng.normal(size=(a, 1, 3)) * 0.3
+    params["f_rest"][:a] = rng.normal(size=(a, 3, 3)) * 0.1
+    params["opacity"][:a] = rng.uniform(-2, 1, (a, 1))
+    params["scaling"][:a] = np.log(rng.uniform(0.005, 0.02, (a, 3)))
+    params["rotation"][:a] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    active = np.zeros(n, bool)
+    active[:a] = True
+    R = np.array([[0.995, 0.0, 0.0998], [0.0, 1.0, 0.0], [-0.0998, 0.0, 0.995]])  # no zeros
+    R = R @ np.array([[1.0, 0.0, 0.0], [0.0, 0.995, -0.0998], [0.0, 0.0998, 0.995]])
+    return (from_numpy(params, active, 1, 1, device=device),
+            make_camera(R, np.array([0.05, -0.02, 0.1]), FOVX, FOVY, width, height,
+                        device=device))
+
+
+def launches_of(torch, fn):
+    """Device operations (kernels, copies, sets) of one call of fn, from the
+    profiler, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def phase_vertex(torch, seed, device, tag="[22 vertex]"):
+    """The vertex stage's kernels at the benchmark cells' row counts: the
+    forward against project_gaussians on the card, bit for bit in every
+    field, the backward against autograd
+    of project_gaussians (1e-3 of each row's largest entry) and against
+    project_backward_torch (1e-5); each kernel's device time with L2 flushed
+    beside its byte bound, the plain version's time (CUDA events) and its
+    device operations per call."""
+    from binocular3dgs_torch.models.gaussians import PARAM_NAMES
+    from binocular3dgs_torch.ops.project import (
+        ProjectedGaussians, project_backward, project_backward_torch, project_forward,
+        project_gaussians,
+    )
+
+    fwd, bwd = {}, {}
+    for cell, n, active_n, width, height in VERTEX_SHAPES:
+        model, cam = vertex_rows(seed + 22, n, active_n, width, height, device)
+        leaves = [getattr(model.params, k) for k in PARAM_NAMES]
+        carrier = torch.zeros(n, 2, device=device)
+        args = (*leaves, model.active, cam, 1, 0.3, 0.2)
+
+        def plain_forward(grad):
+            ls = [x.detach().requires_grad_(grad) for x in leaves]
+            c = carrier.clone().requires_grad_(grad)
+            with torch.set_grad_enabled(grad):
+                proj = project_gaussians(
+                    ls[0], torch.exp(ls[4]), ls[5], torch.sigmoid(ls[3])[..., 0],
+                    torch.cat([ls[1], ls[2]], 1), model.active, cam, 1, mean2d_carrier=c)
+            return proj, ls + [c]
+
+        got = project_forward(*args, carrier)
+        want, inputs = plain_forward(True)
+        torch.cuda.synchronize()
+        # bit for bit: the kernel rounds the camera products as cuBLAS and
+        # the norms as PyTorch's reductions do on the card (csrc/project.cu),
+        # which keeps the benchmark's reference comparison at its rounding
+        errs = {k: (getattr(got, k).float() - getattr(want, k).float()).abs().max().item()
+                for k in ProjectedGaussians._fields}
+        equal = {k: (getattr(got, k) == getattr(want, k)).float().mean().item()
+                 for k in ProjectedGaussians._fields}
+        check(all(v == 1.0 for v in equal.values()),
+              f"{tag} {cell} project_forward differs from project_gaussians: share of equal "
+              f"values {equal}, max|diff| {errs}")
+
+        gen = torch.Generator().manual_seed(seed + 23)
+        cots = [torch.randn(shape, generator=gen).to(device)
+                for shape in ((n, 2), (n,), (n, 3), (n, 3), (n,))]
+        outs = [want.mean2d, want.depth, want.conic, want.color, want.opacity]
+        grads = project_backward(*args, *cots, True)
+        torch.cuda.synchronize()
+        want_g = torch.autograd.grad(outs, inputs, grad_outputs=cots, retain_graph=True)
+        plain_g = project_backward_torch(*args, *cots, True)
+        rel_autograd, rel_plain = {}, {}
+        for k, g, w, pl in zip(PARAM_NAMES + ("carrier",), grads, want_g, plain_g):
+            g, w, pl = g.reshape(n, -1), w.reshape(n, -1), pl.reshape(n, -1)
+            rel_autograd[k] = ((g - w).abs() / w.abs().amax(1, keepdim=True)).nan_to_num(
+                0.0, posinf=np.inf).max().item()
+            rel_plain[k] = ((g - pl).abs() / pl.abs().amax(1, keepdim=True)).nan_to_num(
+                0.0, posinf=np.inf).max().item()
+            check(rel_autograd[k] <= 1e-3, f"{tag} {cell} project_backward {k} differs from "
+                                            f"autograd by {rel_autograd[k]} of its row")
+            check(rel_plain[k] <= 1e-5, f"{tag} {cell} project_backward {k} differs from "
+                                         f"project_backward_torch by {rel_plain[k]} of its row")
+        log(f"{tag} {cell}: {n} rows ({active_n} active, {int(got.visible.sum())} visible) at "
+            f"{width}x{height}; forward equal to project_gaussians bit for bit in every field; "
+            f"backward max|diff| / row max vs autograd "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel_autograd.items())
+            + " (tol 1e-3), vs project_backward_torch "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel_plain.items()) + " (tol 1e-5)")
+
+        for res, name, fn, plain, bpr in (
+            (fwd, "project_forward", lambda: project_forward(*args, carrier),
+             lambda: plain_forward(False), VERTEX_FWD_BYTES_PER_ROW),
+            (bwd, "project_backward", lambda: project_backward(*args, *cots, True),
+             lambda: torch.autograd.grad(outs, inputs, grad_outputs=cots, retain_graph=True),
+             VERTEX_BWD_BYTES_PER_ROW),
+        ):
+            ms, event_ms = kernel_times(torch, fn, f"{name}_kernel")
+            plain_ms = median_ms(torch, plain, warmup=1, iters=5)
+            plain_ops = launches_of(torch, plain)
+            bound_ms, bound_by, _, _ = kernel_bound(bpr * n, 0)
+            log(f"{tag} {cell} {name} kernel {ms:.4f} ms (profiler, L2 flushed; {event_ms:.4f} "
+                f"ms CUDA events around the wrapper), bound {bpr * n} B -> {bound_ms:.4f} ms "
+                f"({ms / bound_ms:.2f}x); plain {plain_ms:.4f} ms in {plain_ops} device "
+                f"operations")
+            check(ms >= bound_ms, f"{name} reads {ms} ms, below its bound {bound_ms} ms")
+            res[cell] = dict(rows=n, active=active_n, ms=ms, event_ms=event_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, bytes=bpr * n,
+                             plain_ms=plain_ms, plain_device_ops=plain_ops)
+        res = fwd[cell]
+        res["parity"] = dict(max_abs=errs, equal_share=equal)
+        bwd[cell]["parity"] = dict(rel_autograd=rel_autograd, rel_plain=rel_plain)
+        del model, leaves, carrier, got, want, inputs, grads, want_g, plain_g, outs, cots
+        torch.cuda.empty_cache()
+    kernels = []
+    for name, res in (("project_forward", fwd), ("project_backward", bwd)):
+        first = res[VERTEX_SHAPES[0][0]]
+        kernels.append(dict(
+            name=name, route="cuda", source="binocular3dgs_torch/csrc/project.cu",
+            replaces=VERTEX_NO_TPU_KERNEL, launches=None, ms=first["ms"],
+            event_ms=first["event_ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=None,
+            library_note="none: no single PyTorch call computes the vertex stage", cells=res))
+    return kernels
+
+
 def plain_render_image(torch, cam, model, bg, raster):
     """The image of render_tiled with the blend done by its plain PyTorch
     version, from the rasterizer's own stages."""
@@ -647,12 +819,16 @@ def phase_main_path(torch, model, device, raster):
     launch_counts(reset=True)
     outs = [render_tiled(cam, model, bg, raster=raster, device=device) for cam in cams]
     torch.cuda.synchronize()
-    launches = launch_counts()["blend_forward"]
+    counts = launch_counts()
+    launches = counts["blend_forward"]
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
-    log(f"[5 main] {N_VIEWS} renders, blend_forward launches {launches}, peak memory "
-        f"{peak_mb:.1f} MiB")
+    log(f"[5 main] {N_VIEWS} renders, blend_forward launches {launches}, project_forward "
+        f"{counts['project_forward']}, project_backward {counts['project_backward']}, peak "
+        f"memory {peak_mb:.1f} MiB")
     check(launches == N_VIEWS, f"blend_forward launched {launches} times for {N_VIEWS} renders")
+    check(counts["project_forward"] == N_VIEWS and counts["project_backward"] == 0,
+          f"the vertex stage's kernels launched {counts} for {N_VIEWS} renders")
     for i, out in enumerate(outs):
         check(out.image.shape == (3, H, W), f"view {i} image shape {tuple(out.image.shape)}")
         check(bool(torch.isfinite(out.image).all() & torch.isfinite(out.depth).all()),
@@ -709,7 +885,8 @@ def phase_main_path(torch, model, device, raster):
         + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items()) + " ms")
     busy = device_busy(torch, lambda: render_tiled(cam, model, bg, raster=raster, device=device),
                        "[5 main]", render_ms)
-    result = dict(launches=launches, render_ms=render_ms, stage_ms=stage_ms, peak_mib=peak_mb,
+    result = dict(launches=launches, project_launches=counts["project_forward"],
+                  render_ms=render_ms, stage_ms=stage_ms, peak_mib=peak_mb,
                   e2e_plain_max_abs=e2e, dense_small_max_abs=small_err, **busy)
     return result, (outs[0].image, outs[0].depth, cams[0])
 
@@ -805,7 +982,8 @@ def phase_entry_point(torch, model, scene, work):
     t0 = time.perf_counter()
     check(cli.main(["render", "-m", out, "-s", scene]) == 0, "cli render failed")
     t_render = time.perf_counter() - t0
-    n_render = launch_counts()["blend_forward"]
+    counts = launch_counts()
+    n_render = counts["blend_forward"]
     for split, n in (("train", 3), ("test", 2)):
         d = os.path.join(out, split, "ours_1", "renders")
         check(os.path.isdir(d) and len(os.listdir(d)) == n, f"expected {n} {split} renders")
@@ -818,6 +996,8 @@ def phase_entry_point(torch, model, scene, work):
     log(f"[6 cli] render {t_render:.2f} s ({n_render} kernel launches), metrics "
         f"{t_metrics:.2f} s (host clock, image I/O included); results {res}")
     check(n_render == 5, f"cli render launched the kernel {n_render} times for 5 views")
+    check(counts["project_forward"] == 5 and counts["project_backward"] == 0,
+          f"cli render launched the vertex stage's kernels {counts} for 5 views")
     return dict(psnr=res["PSNR"], ssim=res["SSIM"], render_s=t_render, metrics_s=t_metrics)
 
 
@@ -825,8 +1005,8 @@ _LAUNCH_BASE = {}
 
 
 def launch_counts(reset=False):
-    """The four kernels' launches (binocular3dgs_torch.tracing) since the
-    last call with `reset`."""
+    """The kernels' launches (binocular3dgs_torch.tracing) since the last
+    call with `reset`."""
     from binocular3dgs_torch import tracing
 
     now = tracing.launches()
@@ -938,7 +1118,8 @@ def phase_train(torch, device, seed):
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     expected = dict(blend_forward=2 * TRAIN_STEPS, blend_backward=2 * TRAIN_STEPS,
-                    warp_forward=TRAIN_STEPS, warp_backward=TRAIN_STEPS)
+                    warp_forward=TRAIN_STEPS, warp_backward=TRAIN_STEPS,
+                    project_forward=2 * TRAIN_STEPS, project_backward=2 * TRAIN_STEPS)
     step_ms = [s.elapsed_time(e) for s, e in events]
     losses = [float(m.loss + m.disparity_loss) for m in metrics]
     log(f"[9 train] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-ups: launches {counts} "
@@ -1172,7 +1353,7 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
         train_log = json.load(f)
     steps = 30
     expected = dict(blend_forward=2 * steps, blend_backward=2 * steps, warp_forward=steps,
-                    warp_backward=steps)
+                    warp_backward=steps, project_forward=2 * steps, project_backward=2 * steps)
     resumed = f"Resumed from {ckpt} at iteration 30" in text.getvalue()
     grown = [line for line in text.getvalue().splitlines() if "pair capacity grown" in line]
     ppg = probe.trainer.raster.pairs_per_gaussian
@@ -1180,7 +1361,7 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
         trace = f.read()
     symbols = {k: k in trace for k in (
         "blend_forward_kernel", "blend_backward_kernel", "warp_forward_kernel",
-        "warp_backward_kernel")}
+        "warp_backward_kernel", "project_forward_kernel", "project_backward_kernel")}
     trace_mib = os.path.getsize(os.path.join(prof, "trace.json")) / 2**20
     # the state the resumed trainer steps from, against the checkpoint
     unequal = differing_buffers(state_tensors(ckpt_state), probe.start_buffers)
@@ -1246,7 +1427,8 @@ def phase_spiral(torch, trained, n_frames=8):
         t_spiral = time.perf_counter() - t0
     finally:
         rasterize.render_tiled = original
-    launches = launch_counts()["blend_forward"]
+    counts = launch_counts()
+    launches = counts["blend_forward"]
     check(rc == 0, "cli spiral failed")
     d = os.path.join(trained, "spiral", "ours_60")
     pngs = sorted(os.listdir(d)) if os.path.isdir(d) else []
@@ -1259,6 +1441,8 @@ def phase_spiral(torch, trained, n_frames=8):
         f"{float(np.median(render_ms)):.4f} ms median (CUDA events)")
     check(len(pngs) == 3 * n_frames, f"spiral wrote {len(pngs)} PNGs")
     check(launches == n_frames, f"spiral launched blend_forward {launches} times")
+    check(counts["project_forward"] == n_frames and counts["project_backward"] == 0,
+          f"spiral launched the vertex stage's kernels {counts}")
     check(shape == (3, H, W), f"spiral frames are {shape}")
     check(min(alpha) > 0, f"a spiral frame renders nothing: {alpha}")
     return dict(pngs=len(pngs), launches=launches, alpha_share=alpha,
@@ -1357,7 +1541,8 @@ def phase_viewer(torch, model, cam, device):
         t.join(timeout=60)
     finally:
         gui.close()
-    launches = launch_counts()["blend_forward"]
+    counts = launch_counts()
+    launches = counts["blend_forward"]
     equal = received.get("img") == want.tobytes()
     log(f"[14 viewer] served {len(received.get('img', b''))} bytes in {t_serve * 1e3:.1f} ms "
         f"(host clock: request parse, render, copy to the host, send), blend_forward launches "
@@ -1366,6 +1551,7 @@ def phase_viewer(torch, model, cam, device):
     check(not t.is_alive() and received.get("verify") == "chip_smoke", "viewer client failed")
     check(equal, "the served image differs from the direct render")
     check(launches == 1, f"serve_step launched blend_forward {launches} times")
+    check(counts["project_forward"] == 1, f"serve_step launched project_forward {counts}")
     return dict(serve_ms=t_serve * 1e3, launches=launches, bytes_equal=equal)
 
 
@@ -2338,7 +2524,8 @@ def sharded_rank_checks(torch, device, seed):
         f"{out.pair_capacity}, single render {int(ref.num_pairs)}")
     check(diff["image"] <= 1e-5 and diff["alpha"] <= 1e-5 and diff["depth"] <= 1e-4
           and radii_equal, f"{tag} the band render differs from the single render: {diff}")
-    check(launches["blend_forward"] == 1, f"{tag} band render launches {launches}")
+    check(launches["blend_forward"] == 1 and launches["project_forward"] == 1,
+          f"{tag} band render launches {launches}")
     check(int(out.num_pairs) <= out.pair_capacity, f"{tag} a band overflows its pair capacity")
 
     # one sharded step against the single-process step from the same state
@@ -2355,7 +2542,8 @@ def sharded_rank_checks(torch, device, seed):
            for n in ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")}
     rel["grad_accum"] = rel_norm(s2.grad_accum, s1.grad_accum)
     loss_rel = abs(loss2 - loss1) / abs(loss1)
-    expected = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1)
+    expected = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1,
+                    project_forward=2, project_backward=2)
     res["step"] = dict(loss_sharded=loss2, loss_single=loss1, loss_rel=loss_rel, rel_norm=rel,
                        launches=launches)
     log(f"{tag} one sharded step vs the single step: loss {loss2:.7f} vs {loss1:.7f} (rel "
@@ -2617,9 +2805,11 @@ def main():
     # the opposite sign at the trainer's widest shift
     w1["opposite_shift"], w2["opposite_shift"] = phase_warp_parity(
         torch, view0, args.seed, trans=-Config().train.cam_trans_dist, tag="[8 warp opposite]")
+    p1, p2 = phase_vertex(torch, args.seed, device)
     train = phase_train(torch, device, args.seed)
     b1["launches_serving"] = main_path["launches"]
-    for k in (b1, b2, w1, w2):
+    p1["launches_serving"] = main_path["project_launches"]
+    for k in (b1, b2, w1, w2, p1, p2):
         k["launches"] = train["launches"][k["name"]]
 
     work = os.path.join(REPO, "build", "chip_smoke_scene")
@@ -2644,15 +2834,15 @@ def main():
         multihost = phase_multihost(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for k in (b1, b2, w1, w2):  # per rank, in one sharded step (each rank held alike)
+    for k in (b1, b2, w1, w2, p1, p2):  # per rank, in one sharded step (each rank held alike)
         k["launches_sharded_step"] = [r["step"]["launches"][k["name"]]
                                       for r in sharded[f"ranks_{SHARDED_RANKS[0]}"]["ranks"]]
     b1["launches_spiral"] = spiral["launches"]
-    for k in (b1, b2, w1, w2):
+    for k in (b1, b2, w1, w2, p1, p2):
         k["launches_resumed"] = resume["launches"][k["name"]]
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [b1, b2, w1, w2], "main_path": main_path, "train": train,
+    print(json.dumps({"kernels": [b1, b2, w1, w2, p1, p2], "main_path": main_path, "train": train,
                       "cli": cli_res, "cli_train": cli_train, "resume": resume,
                       "spiral": spiral, "lpips": lpips, "viewer": viewer,
                       "determinism": determinism, "dense_init": dense_init,

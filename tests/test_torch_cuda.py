@@ -1,6 +1,6 @@
 """Tests that need a CUDA card: the hand-written kernels (blend forward B1,
-blend backward B2, warp forward W1 and backward W2) against their plain
-PyTorch versions, and their launch counters around a render and a training
+blend backward B2, warp forward W1 and backward W2, the vertex stage's
+forward and backward) against their plain PyTorch versions, and their launch counters around a render and a training
 step; a training step that repeats bit for bit; the port's ranges on the
 profiler's device clock, and a traced span of the trainer that syncs no
 more than an untraced one; the dense init's Farneback
@@ -22,7 +22,9 @@ import torch
 
 from binocular3dgs_torch import tracing
 from binocular3dgs_torch.core.camera import make_camera
-from binocular3dgs_torch.models.gaussians import from_numpy
+from binocular3dgs_torch.models.gaussians import (
+    PARAM_NAMES, GaussianModel, GaussianParams, from_numpy,
+)
 from binocular3dgs_torch.config import Config, RasterConfig
 from binocular3dgs_torch.ops import warp
 from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
@@ -31,6 +33,9 @@ from binocular3dgs_torch.ops.blend_cuda import (
     blend_backward_torch,
     blend_forward,
     blend_forward_torch,
+)
+from binocular3dgs_torch.ops.project import (
+    compute_cov3d, ewa_cov2d, project_backward, project_backward_torch, project_gaussians,
 )
 from binocular3dgs_torch.ops.rasterize import _build_fields, project_for_render, render_tiled
 from binocular3dgs_torch.train.state import init_train_state
@@ -112,10 +117,12 @@ def test_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elongated):
 @pytest.mark.cuda
 def test_render_counts_one_launch(cuda_device):
     model, cam = scene(3, 100, 64, 48, cuda_device)
-    before = tracing.launches()["blend_forward"]
+    before = tracing.launches()
     out = render_tiled(cam, model, [0.0, 0.0, 0.0], device=cuda_device)
     torch.cuda.synchronize()
-    assert tracing.launches()["blend_forward"] == before + 1
+    after = tracing.launches()
+    assert after["blend_forward"] == before["blend_forward"] + 1
+    assert after["project_forward"] == before["project_forward"] + 1
     assert out.image.shape == (3, 48, 64) and torch.isfinite(out.image).all()
 
 
@@ -160,6 +167,146 @@ def test_warp_kernels_match_plain(cuda_device, spread):
     assert (diff - want_diff).abs().max().item() <= 1e-6
     # the same fixed-point sum on both sides: equal bit for bit
     assert torch.equal(bits(d_img), bits(warp.warp_backward_torch(disp, d_out)))
+
+
+def vertex_scene(seed, n, deg, device):
+    """A random vertex-stage input: `scene`'s draw at SH degree `deg` (max
+    degree 3, all 15 rest coefficients drawn), with rows behind the camera,
+    inside the cull and inactive, before a camera turned about two axes (no
+    product with it is exact)."""
+    rng = np.random.default_rng(seed)
+    model, cam = scene(seed, n, 400, 300, device)
+    p = model.params
+    xyz = p.xyz.clone()
+    xyz[: n // 20, 2] = torch.from_numpy(rng.uniform(-3.0, 0.2, n // 20)).float().to(device)
+    f_rest = torch.from_numpy(rng.normal(size=(n, 15, 3)).astype(np.float32) * 0.2).to(device)
+    active = torch.from_numpy(rng.random(n) > 0.05).to(device)
+    params = dict(xyz=xyz, f_dc=p.f_dc, f_rest=f_rest, opacity=p.opacity, scaling=p.scaling,
+                  rotation=p.rotation)
+    R = np.array([[0.995, 0.0, 0.0998], [0.0, 1.0, 0.0], [-0.0998, 0.0, 0.995]])
+    R = R @ np.array([[1.0, 0.0, 0.0], [0.0, 0.995, -0.0998], [0.0, 0.0998, 0.995]])
+    cam = make_camera(R, np.array([0.05, -0.02, 0.1]), 0.9, 0.7, 400, 300, device=device)
+    return GaussianModel(GaussianParams(**params), active, 3, deg), cam
+
+
+def plain_vertex_stage(model, cam, carrier):
+    """project_gaussians on the card (the plain version) from the raw
+    leaves, and the leaves it differentiates."""
+    leaves = [getattr(model.params, n).clone().requires_grad_(True) for n in PARAM_NAMES]
+    xyz, f_dc, f_rest, opacity, scaling, rotation = leaves
+    proj = project_gaussians(
+        xyz=xyz, scaling=torch.exp(scaling), rotation_raw=rotation,
+        opacity=torch.sigmoid(opacity)[..., 0], features=torch.cat([f_dc, f_rest], 1),
+        active=model.active, camera=cam, sh_degree=model.active_sh_degree,
+        mean2d_carrier=carrier)
+    return proj, leaves
+
+
+# the kernel against project_gaussians on the card: the same float32
+# elementwise algebra in the same order, and the camera products and the
+# norms rounded as cuBLAS and PyTorch's reductions round them on the card
+# as measured (csrc/project.cu), so the fields agree bit for bit there
+# (chip_smoke's phase 22 holds that at the cells' sizes). The test holds
+# the tolerances of the JAX parity tests, which a library that fused the
+# products in another order would still meet: last-bit differences,
+# amplified by the homogeneous divide and the pixel scale (mean2d) and by
+# the inversion of the 2x2 covariance (conic)
+VERTEX_TOL = {
+    "mean2d": dict(rtol=1e-5, atol=1e-4),  # pixels
+    "depth": dict(rtol=1e-6, atol=1e-6),
+    "conic": dict(rtol=1e-4, atol=1e-6),
+    "color": dict(rtol=1e-6, atol=1e-6),
+    "opacity": dict(rtol=1e-6, atol=1e-7),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("with_carrier", [True, False], ids=["carrier", "no_carrier"])
+def test_vertex_forward_kernel_matches_plain(cuda_device, deg, with_carrier):
+    n = 20_000
+    model, cam = vertex_scene(deg, n, deg, cuda_device)
+    carrier = (torch.randn(n, 2, generator=torch.Generator().manual_seed(deg)) * 1e-3).to(
+        cuda_device) if with_carrier else None
+    before = tracing.launches()
+    with torch.no_grad():
+        got = project_for_render(cam, model, mean2d_carrier=carrier)
+        want, _ = plain_vertex_stage(model, cam, carrier)
+    torch.cuda.synchronize()
+    after = tracing.launches()
+    assert after["project_forward"] == before["project_forward"] + 1
+    assert after["project_backward"] == before["project_backward"]
+    assert torch.equal(got.visible, want.visible)
+    assert 0.5 * n < int(got.visible.sum()) < n
+    for name, tol in VERTEX_TOL.items():
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), **tol, msg=name)
+    # radius = ceil(3 sqrt(lambda_max)): a row may differ by 1 only where
+    # that value sits within a few ulps of an integer; bin_extent is capped
+    # at the radius and may differ with it there
+    cov2d = ewa_cov2d(model.params.xyz, compute_cov3d(torch.exp(model.params.scaling),
+                                                      model.params.rotation), cam, 0.3,
+                      valid=want.visible)
+    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
+    r = 3.0 * torch.sqrt(torch.clamp(mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1)),
+                                     min=0.0))
+    differ = got.radius != want.radius
+    near = (r - torch.round(r)).abs() <= 8 * torch.finfo(torch.float32).eps * r
+    assert torch.all((got.radius - want.radius).abs()[differ] == 1)
+    assert torch.all(near[differ]), int(differ.sum())
+    assert int(differ.sum()) <= n // 1000
+    torch.testing.assert_close(got.bin_extent[~differ], want.bin_extent[~differ], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 1, 3])
+@pytest.mark.parametrize("with_carrier", [True, False], ids=["carrier", "no_carrier"])
+def test_vertex_backward_kernel_matches_autograd(cuda_device, deg, with_carrier):
+    n = 20_000
+    model, cam = vertex_scene(10 + deg, n, deg, cuda_device)
+    g = torch.Generator().manual_seed(deg + 2 * with_carrier)
+    carrier = torch.zeros(n, 2, device=cuda_device) if with_carrier else None
+    cots = [torch.randn(shape, generator=g).to(cuda_device)
+            for shape in ((n, 2), (n,), (n, 3), (n, 3), (n,))]
+    c = carrier.clone().requires_grad_(True) if with_carrier else None
+    want_proj, leaves = plain_vertex_stage(model, cam, c)
+    outs = [want_proj.mean2d, want_proj.depth, want_proj.conic, want_proj.color,
+            want_proj.opacity]
+    want = torch.autograd.grad(outs, leaves + ([c] if with_carrier else []), grad_outputs=cots)
+    before = tracing.launches()
+    got = project_backward(*(getattr(model.params, k) for k in PARAM_NAMES), model.active, cam,
+                           deg, 0.3, 0.2, *cots, with_carrier)
+    torch.cuda.synchronize()
+    assert tracing.launches()["project_backward"] == before["project_backward"] + 1
+    plain = project_backward_torch(*(getattr(model.params, k) for k in PARAM_NAMES),
+                                   model.active, cam, deg, 0.3, 0.2, *cots, with_carrier)
+    # against autograd: the same float32 derivatives in another order of
+    # operations (and the forward's cuBLAS products), row by row as on the
+    # CPU (tests/test_torch_project.py), 1e-3 of the row's largest entry;
+    # against project_backward_torch: the same formulas in the same order,
+    # the SH constants' roundings and the transcendentals' implementations
+    # aside, 1e-5
+    names = PARAM_NAMES + (("carrier",) if with_carrier else ())
+    for name, w, k, pl in zip(names, want, got, plain):
+        w, k, pl = w.reshape(n, -1), k.reshape(n, -1), pl.reshape(n, -1)
+        row = w.abs().amax(1, keepdim=True)
+        assert torch.all((k - w).abs() <= 1e-3 * row), (name, ((k - w).abs() / row).max())
+        row = pl.abs().amax(1, keepdim=True)
+        assert torch.all((k - pl).abs() <= 1e-5 * row), (name, ((k - pl).abs() / row).max())
+    if with_carrier:
+        assert torch.all(got[6][~want_proj.visible] == 0)
+    else:
+        assert got[6] is None
+    # and what the kernel sees through autograd: the Function's gradients
+    model_leaves = [getattr(model.params, n).clone().requires_grad_(True) for n in PARAM_NAMES]
+    m2 = GaussianModel(GaussianParams(**dict(zip(PARAM_NAMES, model_leaves))), model.active, 3,
+                       deg)
+    proj = project_for_render(cam, m2, mean2d_carrier=carrier)
+    via = torch.autograd.grad([proj.mean2d, proj.depth, proj.conic, proj.color, proj.opacity],
+                              model_leaves, grad_outputs=cots)
+    for a, b in zip(via, got):
+        assert torch.equal(a, b)
 
 
 def bits(x):
@@ -236,7 +383,7 @@ def test_train_step_counts_launches(cuda_device):
     state, metrics = step(state, cam, gt, aw, 2, 0.2, torch.zeros(3, device=cuda_device))
     torch.cuda.synchronize()
     after = tracing.launches()
-    assert [after[k] - before[k] for k in tracing.KERNELS] == [2, 2, 1, 1]
+    assert [after[k] - before[k] for k in tracing.KERNELS] == [2, 2, 1, 1, 2, 2]
     assert torch.isfinite(metrics.loss) and float(metrics.disparity_loss) > 0
 
 
