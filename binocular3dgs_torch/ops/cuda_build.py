@@ -109,6 +109,8 @@ def load_library() -> ctypes.CDLL:
                 "b3dgs_warp_backward": [P, P, I, I, I, P, P],
                 "b3dgs_project_forward": [P] * 13 + [LL, I, I, I, I, F, F] + [P] * 9,
                 "b3dgs_project_backward": [P] * 12 + [LL, I, I, I, I, F, F] + [P] * 13,
+                "b3dgs_ssim_forward": [P, P, I, I, I, P, I, P, LL, P, P, P, P, P],
+                "b3dgs_ssim_backward": [P] * 6 + [I, I, I, P, I, P, P],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

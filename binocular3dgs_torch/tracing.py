@@ -2,10 +2,10 @@
 
 A range is a named interval of host time (`region`), a counter a named
 value at an instant (`count`). Names give the layer first: `trainer.*`
-(train/loop.py, densification), `step.*` (train/step.py, the warp's
-backward), `render.*` (ops/rasterize.py, the blend's and the vertex
-stage's backward) and
-`kernel.*` (the hand-written kernels' launches).
+(train/loop.py, densification), `step.*` (train/step.py, the warp's and
+SSIM's backward), `render.*` (ops/rasterize.py, the blend's and the vertex
+stage's backward), `loss.*` (ops/losses.py: the values SSIM's kernel
+blurs) and `kernel.*` (the hand-written kernels' launches).
 
 The recorder is on exactly while a `torch.profiler` session traces: it
 tests the flag that the profiler sets around its trace
@@ -43,7 +43,7 @@ from torch.autograd import profiler as _profiler
 
 CAPACITY = 1 << 18
 KERNELS = ("blend_forward", "blend_backward", "warp_forward", "warp_backward",
-           "project_forward", "project_backward")
+           "project_forward", "project_backward", "ssim_forward", "ssim_backward")
 
 # (id, name, thread, start_ns, end_ns, parent id, attrs), appended when a range ends
 _ranges: collections.deque = collections.deque(maxlen=CAPACITY)

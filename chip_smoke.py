@@ -38,8 +38,8 @@ width and fails (non-zero exit) if any phase fails:
   9. training main path: the bench.py workload through
      `make_train_step(binocular=True)`, 3 warm-up and 10 timed steps with the
      launch counters read around exactly the timed ones (2 blend forward, 2
-     blend backward, 1 warp forward, 1 warp backward, 2 vertex forward and 2
-     vertex backward per step); step time,
+     blend backward, 1 warp forward, 1 warp backward, 2 vertex forward, 2
+     vertex backward, 1 SSIM forward and 1 SSIM backward per step); step time,
      per-stage times, peak memory, device busy share and top kernels; one
      step at 5k gaussians and 256x192 on the card against the CPU
  10. entry point: `cli train` (densification and the binocular branch
@@ -52,9 +52,9 @@ width and fails (non-zero exit) if any phase fails:
      --profile_dir`: the state the resumed trainer steps from equal to
      chkpnt30.npz bit for bit (every buffer, adam_step 30, SH degrees and
      spatial_lr_scale), iteration 60 reached with a finite loss, 2 blend forward,
-     2 blend backward, 1 warp forward, 1 warp backward, 2 vertex forward and
-     2 vertex backward launches per resumed step, and the six kernels named
-     in the trace
+     2 blend backward, 1 warp forward, 1 warp backward, 2 vertex forward, 2
+     vertex backward, 1 SSIM forward and 1 SSIM backward launches per resumed
+     step, and the eight kernels named in the trace
  12. `cli spiral --n_frames 8 --no_video` of the phase-10 model at 1008x756
      (the scene's poses_bounds.npy): 24 PNGs, 8 blend forward launches,
      something rendered in every frame; ms per frame
@@ -103,7 +103,7 @@ width and fails (non-zero exit) if any phase fails:
      against `render_tiled` (image and alpha 1e-5, depth 1e-4, radii
      equal), B1 launched once; one sharded step against the single step
      (loss 1e-5 relative, adam_m and grad_accum within 1e-3 of their norms),
-     launches 2/2/1/1/2/2; where the capacity divides: `shard_gaussians`
+     launches 2/2/1/1/2/2/1/1; where the capacity divides: `shard_gaussians`
      against the replicated render (the same tolerances), 3 `shard_adam`
      steps against 3 replicated ones bit for bit with capacity/ranks moment
      rows, and the replicated run twice bit for bit; then the step median
@@ -119,6 +119,15 @@ width and fails (non-zero exit) if any phase fails:
      and against project_backward_torch; device times with L2
      flushed beside their byte bounds, the plain version's time and device
      operations per call
+ 23. (run after phase 22) SSIM's kernels at the cells' image sizes (3 x 1512
+     x 2016 and 3 x 400 x 400): the plain composition's five blurs run as
+     conv_depthwise2d (the PyTorch and CUDA versions that S1's order of sums
+     is pinned to beside this card's), S1's three maps equal to
+     ssim_maps_torch's bit for bit and its mean the plain composition's, S2
+     against autograd of the plain composition and against
+     ssim_backward_torch of S1's maps, two launches of each bit for bit;
+     device times with L2 flushed beside the bounds of the work SSIM needs,
+     the plain version's time and device operations per call
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -184,6 +193,19 @@ VERTEX_SHAPES = (("llff3", 1_048_576, 285_523, 2016, 1512),
                  ("blender8", 262_144, 100_000, 400, 400))
 VERTEX_FWD_BYTES_PER_ROW, VERTEX_BWD_BYTES_PER_ROW = 101 + 53, 133 + 100
 VERTEX_NO_TPU_KERNEL = "none: the JAX vertex stage (binocular3dgs_tpu/ops/project.py) is XLA"
+# SSIM's kernels (phase 23) at the cells' training images, against the
+# work SSIM needs. Per pixel-channel S1 reads the render and the ground
+# truth and writes the three derivative maps, S2 reads the maps and both
+# images and writes the render's gradient; FP32 instructions (a fused
+# multiply-add one) with separable blurs: S1 145 (3 products, 110 taps of
+# the separable window over five quantities, 18 for the map, 14 for its
+# derivatives), S2 72 (66 taps over three maps, 6 to combine them), as
+# benchmark/metrics/train.ssim_roofline.py counts. S1 runs 605 taps, the
+# 11x11 window's, to sum as the plain composition's conv_depthwise2d does
+SSIM_SHAPES = (("llff3", 1512, 2016), ("blender8", 400, 400))
+SSIM_FWD_BYTES, SSIM_BWD_BYTES = 20, 24
+SSIM_FWD_INSTR, SSIM_BWD_INSTR = 145, 72
+SSIM_NO_TPU_KERNEL = "none: the JAX package's SSIM (binocular3dgs_tpu/ops/losses.py) is XLA"
 
 W, H, N_GAUSS, PAIRS_PER_GAUSSIAN = 1008, 756, 100_000, 6
 # the overdraw shape of phases 4 and 7: make_workload's draw with large,
@@ -781,6 +803,110 @@ def phase_vertex(torch, seed, device, tag="[22 vertex]"):
     return kernels
 
 
+def phase_ssim(torch, seed, device, tag="[23 ssim]"):
+    """SSIM's kernels at the cells' image sizes: S1's maps equal to
+    ssim_maps_torch's bit for bit (its blurs sum as the plain composition's
+    convolution does) and its mean the plain composition's (1e-6: summed in
+    another order), S2 against autograd of the plain composition and
+    against ssim_backward_torch of S1's maps (1e-4 of the largest entry:
+    S2 blurs separably); two launches of each bit for bit; each kernel's
+    device time with L2 flushed beside its bound (S1's with its mean
+    kernel's), the plain version's time (CUDA events) and its device
+    operations per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from binocular3dgs_torch.ops import losses
+
+    def max_rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    pinned = dict(zip(("torch", "cuda"), losses.SSIM_CONV_PINNED))
+    card = dict(torch=torch.__version__, cuda=torch.version.cuda)
+    fwd, bwd = {}, {}
+    for cell, h, w in SSIM_SHAPES:
+        gen = torch.Generator().manual_seed(seed + 23)
+        gt = torch.rand(1, 3, h, w, generator=gen)
+        x = (gt + 0.1 * torch.randn(1, 3, h, w, generator=gen)).clamp(0, 1).to(device)
+        gt = gt.to(device)
+        up = torch.tensor(-0.2, device=device)  # -lambda_dssim, as the step's loss gives it
+        value, maps = losses.ssim_forward(x, gt, maps=True)
+        dx = losses.ssim_backward(x, gt, maps, up)
+        value2, maps2 = losses.ssim_forward(x, gt, maps=True)
+        dx2 = losses.ssim_backward(x, gt, maps2, up)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                     for a, b in zip((value, *maps, dx), (value2, *maps2, dx2)))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            want_value, want_maps = losses.ssim_maps_torch(x, gt)
+            torch.cuda.synchronize()
+        depthwise = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "conv_depthwise2d_forward" in e.key)
+        log(f"{tag} {cell} the plain blurs: {depthwise} conv_depthwise2d launches (want 5); "
+            f"S1's sums pinned to PyTorch {pinned['torch']} with CUDA {pinned['cuda']}, the "
+            f"card runs {card['torch']} with {card['cuda']}")
+        check(depthwise == 5, f"{tag} {cell} the plain blurs left conv_depthwise2d")
+        xp = x.clone().requires_grad_()
+        plain_value = losses.ssim_torch(xp, gt)
+        (want_dx,) = torch.autograd.grad(plain_value, [xp], grad_outputs=up, retain_graph=True)
+        errs = dict(value=abs(float(value - want_value)),
+                    maps_equal=[bool(torch.equal(m, wm)) for m, wm in zip(maps, want_maps)],
+                    dx_autograd=max_rel(dx, want_dx),
+                    dx_plain=max_rel(dx, losses.ssim_backward_torch(x, gt, maps, up)))
+        log(f"{tag} {cell} 3x{h}x{w}: S1 mean {float(value):.7f} vs plain "
+            f"{float(want_value):.7f} (|diff| {errs['value']:.2e}, tol 1e-6); maps equal to "
+            f"ssim_maps_torch's bit for bit {errs['maps_equal']}; S2 vs autograd "
+            f"{errs['dx_autograd']:.2e}, vs ssim_backward_torch {errs['dx_plain']:.2e} (tol "
+            f"1e-4); two launches of each bit for bit: {repeat}")
+        check(errs["value"] <= 1e-6, f"{tag} {cell} S1's mean differs by {errs['value']}")
+        check(all(errs["maps_equal"]), f"{tag} {cell} S1's maps differ from ssim_maps_torch's")
+        check(max(errs["dx_autograd"], errs["dx_plain"]) <= 1e-4,
+              f"{tag} {cell} S2 differs by {errs}")
+        check(repeat, f"{tag} {cell} two launches of S1 or S2 differ")
+
+        elems = 3 * h * w
+        for res, name, fn, plain, nbytes, instr in (
+            (fwd, "ssim_forward", lambda: losses.ssim_forward(x, gt, maps=True),
+             lambda: losses.ssim_torch(xp, gt), SSIM_FWD_BYTES, SSIM_FWD_INSTR),
+            (bwd, "ssim_backward", lambda: losses.ssim_backward(x, gt, maps, up),
+             lambda: torch.autograd.grad(plain_value, [xp], grad_outputs=up, retain_graph=True),
+             SSIM_BWD_BYTES, SSIM_BWD_INSTR),
+        ):
+            ms, event_ms = kernel_times(torch, fn, f"{name}_kernel")
+            mean_ms = kernel_device_ms(torch, fn, "ssim_forward_mean_kernel") \
+                if name == "ssim_forward" else 0.0
+            ms += mean_ms
+            plain_ms = median_ms(torch, plain, warmup=1, iters=5)
+            plain_ops = launches_of(torch, plain)
+            bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound(nbytes * elems, instr * elems)
+            log(f"{tag} {cell} {name} kernels {ms:.4f} ms (profiler, L2 flushed; the mean "
+                f"kernel's {mean_ms:.4f}; {event_ms:.4f} ms CUDA events around the wrapper), "
+                f"bound {nbytes * elems} B -> {bytes_ms:.4f} ms, {instr * elems} instructions "
+                f"-> {ops_ms:.4f} ms ({ms / bound_ms:.2f}x the {bound_by} bound); plain "
+                f"{plain_ms:.4f} ms in {plain_ops} device operations")
+            check(ms >= bound_ms, f"{name} reads {ms} ms, below its bound {bound_ms} ms")
+            res[cell] = dict(shape=[3, h, w], ms=ms, mean_kernel_ms=mean_ms, event_ms=event_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes * elems,
+                             instructions=instr * elems, plain_ms=plain_ms,
+                             plain_device_ops=plain_ops)
+        fwd[cell]["parity"] = dict(value=errs["value"], maps_equal=errs["maps_equal"],
+                                   repeat=repeat, depthwise_launches=depthwise, pinned=pinned,
+                                   card=card)
+        bwd[cell]["parity"] = dict(autograd=errs["dx_autograd"], plain=errs["dx_plain"])
+        del x, gt, maps, maps2, dx, dx2, xp, plain_value, want_dx, want_maps
+        torch.cuda.empty_cache()
+    kernels = []
+    for name, res in (("ssim_forward", fwd), ("ssim_backward", bwd)):
+        first = res[SSIM_SHAPES[0][0]]
+        kernels.append(dict(
+            name=name, route="cuda", source="binocular3dgs_torch/csrc/ssim.cu",
+            replaces=SSIM_NO_TPU_KERNEL, launches=None, ms=first["ms"],
+            event_ms=first["event_ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=None,
+            library_note="none: no single PyTorch call computes SSIM", cells=res))
+    return kernels
+
+
 def plain_render_image(torch, cam, model, bg, raster):
     """The image of render_tiled with the blend done by its plain PyTorch
     version, from the rasterizer's own stages."""
@@ -1119,7 +1245,8 @@ def phase_train(torch, device, seed):
 
     expected = dict(blend_forward=2 * TRAIN_STEPS, blend_backward=2 * TRAIN_STEPS,
                     warp_forward=TRAIN_STEPS, warp_backward=TRAIN_STEPS,
-                    project_forward=2 * TRAIN_STEPS, project_backward=2 * TRAIN_STEPS)
+                    project_forward=2 * TRAIN_STEPS, project_backward=2 * TRAIN_STEPS,
+                    ssim_forward=TRAIN_STEPS, ssim_backward=TRAIN_STEPS)
     step_ms = [s.elapsed_time(e) for s, e in events]
     losses = [float(m.loss + m.disparity_loss) for m in metrics]
     log(f"[9 train] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-ups: launches {counts} "
@@ -1353,7 +1480,8 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
         train_log = json.load(f)
     steps = 30
     expected = dict(blend_forward=2 * steps, blend_backward=2 * steps, warp_forward=steps,
-                    warp_backward=steps, project_forward=2 * steps, project_backward=2 * steps)
+                    warp_backward=steps, project_forward=2 * steps, project_backward=2 * steps,
+                    ssim_forward=steps, ssim_backward=steps)
     resumed = f"Resumed from {ckpt} at iteration 30" in text.getvalue()
     grown = [line for line in text.getvalue().splitlines() if "pair capacity grown" in line]
     ppg = probe.trainer.raster.pairs_per_gaussian
@@ -1361,7 +1489,8 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
         trace = f.read()
     symbols = {k: k in trace for k in (
         "blend_forward_kernel", "blend_backward_kernel", "warp_forward_kernel",
-        "warp_backward_kernel", "project_forward_kernel", "project_backward_kernel")}
+        "warp_backward_kernel", "project_forward_kernel", "project_backward_kernel",
+        "ssim_forward_kernel", "ssim_backward_kernel")}
     trace_mib = os.path.getsize(os.path.join(prof, "trace.json")) / 2**20
     # the state the resumed trainer steps from, against the checkpoint
     unequal = differing_buffers(state_tensors(ckpt_state), probe.start_buffers)
@@ -2543,7 +2672,7 @@ def sharded_rank_checks(torch, device, seed):
     rel["grad_accum"] = rel_norm(s2.grad_accum, s1.grad_accum)
     loss_rel = abs(loss2 - loss1) / abs(loss1)
     expected = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1,
-                    project_forward=2, project_backward=2)
+                    project_forward=2, project_backward=2, ssim_forward=1, ssim_backward=1)
     res["step"] = dict(loss_sharded=loss2, loss_single=loss1, loss_rel=loss_rel, rel_norm=rel,
                        launches=launches)
     log(f"{tag} one sharded step vs the single step: loss {loss2:.7f} vs {loss1:.7f} (rel "
@@ -2806,10 +2935,12 @@ def main():
     w1["opposite_shift"], w2["opposite_shift"] = phase_warp_parity(
         torch, view0, args.seed, trans=-Config().train.cam_trans_dist, tag="[8 warp opposite]")
     p1, p2 = phase_vertex(torch, args.seed, device)
+    s1, s2 = phase_ssim(torch, args.seed, device)
     train = phase_train(torch, device, args.seed)
     b1["launches_serving"] = main_path["launches"]
     p1["launches_serving"] = main_path["project_launches"]
-    for k in (b1, b2, w1, w2, p1, p2):
+    kernels = (b1, b2, w1, w2, p1, p2, s1, s2)
+    for k in kernels:
         k["launches"] = train["launches"][k["name"]]
 
     work = os.path.join(REPO, "build", "chip_smoke_scene")
@@ -2834,15 +2965,15 @@ def main():
         multihost = phase_multihost(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for k in (b1, b2, w1, w2, p1, p2):  # per rank, in one sharded step (each rank held alike)
+    for k in kernels:  # per rank, in one sharded step (each rank held alike)
         k["launches_sharded_step"] = [r["step"]["launches"][k["name"]]
                                       for r in sharded[f"ranks_{SHARDED_RANKS[0]}"]["ranks"]]
     b1["launches_spiral"] = spiral["launches"]
-    for k in (b1, b2, w1, w2, p1, p2):
+    for k in kernels:
         k["launches_resumed"] = resume["launches"][k["name"]]
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [b1, b2, w1, w2, p1, p2], "main_path": main_path, "train": train,
+    print(json.dumps({"kernels": list(kernels), "main_path": main_path, "train": train,
                       "cli": cli_res, "cli_train": cli_train, "resume": resume,
                       "spiral": spiral, "lpips": lpips, "viewer": viewer,
                       "determinism": determinism, "dense_init": dense_init,

@@ -1,7 +1,8 @@
 """Tests that need a CUDA card: the hand-written kernels (blend forward B1,
 blend backward B2, warp forward W1 and backward W2, the vertex stage's
-forward and backward) against their plain PyTorch versions, and their launch counters around a render and a training
-step; a training step that repeats bit for bit; the port's ranges on the
+forward and backward, SSIM's forward S1 and backward S2) against their
+plain PyTorch versions, and their launch counters around a render and a
+training step; a training step that repeats bit for bit; the port's ranges on the
 profiler's device clock, and a traced span of the trainer that syncs no
 more than an untraced one; the dense init's Farneback
 flow and growth scorer, and one PDCNet+ pass, RANSAC and warp, on the card
@@ -26,7 +27,7 @@ from binocular3dgs_torch.models.gaussians import (
     PARAM_NAMES, GaussianModel, GaussianParams, from_numpy,
 )
 from binocular3dgs_torch.config import Config, RasterConfig
-from binocular3dgs_torch.ops import warp
+from binocular3dgs_torch.ops import losses, warp
 from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
 from binocular3dgs_torch.ops.blend_cuda import (
     blend_backward,
@@ -369,6 +370,152 @@ def test_warp_backward_repeat_launches_identical(cuda_device):
         assert torch.equal(bits(warp.warp_backward(disp, d_out)), bits(first))
 
 
+def ssim_images(seed, shape, device):
+    """A random image and a noisy copy of it in [0, 1], as render and
+    ground truth."""
+    g = torch.Generator().manual_seed(seed)
+    gt = torch.rand(shape, generator=g)
+    return (gt + 0.1 * torch.randn(shape, generator=g)).clamp(0, 1).to(device), gt.to(device)
+
+
+def max_rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def pinned_conv():
+    torch_v, cuda_v = losses.SSIM_CONV_PINNED
+    return (f"S1 sums each blur as conv_depthwise2d of PyTorch {torch_v} with CUDA {cuda_v} "
+            f"does; this card runs PyTorch {torch.__version__} with CUDA {torch.version.cuda}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 1512, 2016), (1, 3, 400, 400), (2, 3, 300, 400)],
+                         ids=["llff", "blender", "batch"])
+def test_ssim_plain_blur_runs_conv_depthwise2d(cuda_device, shape):
+    """The plain composition's five blurs, which S1's maps equal bit for
+    bit, run as five launches of PyTorch's conv_depthwise2d forward kernel
+    (not cuDNN's convolutions): S1 follows that kernel's order of sums."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = ssim_images(5, shape, cuda_device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        losses.ssim_torch(x, y)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    depthwise = sum(n for k, n in kernels.items() if "conv_depthwise2d_forward" in k)
+    assert depthwise == 5, (sorted(kernels), pinned_conv())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size_average", [
+    ((3, 1512, 2016), True), ((3, 300, 400), True), ((2, 3, 300, 400), True),
+    ((2, 3, 300, 400), False)], ids=["llff", "dtu", "batch", "batch_per_image"])
+def test_ssim_kernels_match_plain(cuda_device, shape, size_average):
+    """S1's maps equal ssim_maps_torch's bit for bit (its blurs sum as the
+    plain composition's depthwise convolution does, its algebra in the same
+    order) and its mean the plain composition's (summed in another order:
+    ~1e-7); S2's gradient against autograd of the plain composition and
+    against ssim_backward_torch of S1's maps (S2 blurs separably and sums
+    the three blurred terms, which nearly cancel, in its own order: ~3e-6 of
+    the largest entry)."""
+    x, y = ssim_images(0, shape, cuda_device)
+    up = torch.linspace(-1.0, 1.0, 1 if size_average else shape[0], device=cuda_device)
+    up = up.reshape(()) if size_average else up
+    before = tracing.launches()
+    value, maps = losses.ssim_forward(x[None] if x.ndim == 3 else x,
+                                      y[None] if y.ndim == 3 else y, size_average, maps=True)
+    want_value, want_maps = losses.ssim_maps_torch(x, y, size_average)
+    assert float((value - want_value).abs().max()) <= 1e-6
+    for got, want in zip(maps, want_maps):
+        assert torch.equal(got.reshape(want.shape), want), pinned_conv()
+    xg = x.clone().requires_grad_()
+    got_value = losses.ssim(xg, y, size_average=size_average)
+    (dx,) = torch.autograd.grad(got_value, [xg], grad_outputs=up)
+    torch.cuda.synchronize()
+    after = tracing.launches()
+    assert (after["ssim_forward"] - before["ssim_forward"],
+            after["ssim_backward"] - before["ssim_backward"]) == (2, 1)
+    assert torch.equal(got_value, value)
+    xp = x.clone().requires_grad_()
+    (want_dx,) = torch.autograd.grad(losses.ssim_torch(xp, y, size_average=size_average), [xp],
+                                     grad_outputs=up)
+    assert max_rel(dx, want_dx) <= 1e-4
+    maps_t = tuple(m.reshape(x.shape) for m in maps)
+    assert max_rel(dx, losses.ssim_backward_torch(x, y, maps_t, up, size_average)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ssim_of_a_non_contiguous_view(cuda_device):
+    """The top half of each image (benchmark.calibrate's half_batch): the
+    kernels take the view's contiguous copy, and the gradient reaches the
+    full tensor's top half only."""
+    x, y = ssim_images(1, (3, 600, 400), cuda_device)
+    xg = x.clone().requires_grad_()
+    top = xg[..., :300, :]
+    assert not top.is_contiguous()
+    (dx,) = torch.autograd.grad(losses.ssim(top, y[..., :300, :]), [xg])
+    xc = x[..., :300, :].contiguous().requires_grad_()
+    value_c = losses.ssim(xc, y[..., :300, :].contiguous())
+    (dx_c,) = torch.autograd.grad(value_c, [xc])
+    assert torch.equal(dx[..., :300, :], dx_c)
+    assert not dx[..., 300:, :].any()
+    with torch.no_grad():
+        assert torch.equal(losses.ssim(x[..., :300, :], y[..., :300, :]), value_c)
+
+
+@pytest.mark.cuda
+def test_ssim_kernels_repeat_bit_for_bit(cuda_device):
+    x, y = ssim_images(2, (3, 1512, 2016), cuda_device)
+    runs = []
+    for _ in range(2):
+        xg = x.clone().requires_grad_()
+        value = losses.ssim(xg, y)
+        (dx,) = torch.autograd.grad(value, [xg], grad_outputs=torch.tensor(-0.2, device=x.device))
+        per_image = losses.ssim(x[None], y[None], size_average=False)
+        runs.append([t.view(torch.int32) for t in (value.detach(), dx, per_image)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_ssim_without_a_gradient_writes_no_maps(cuda_device):
+    """Under no_grad (and for an image that needs no gradient) S1 runs
+    alone and allocates no map: its scratch is one float per tile."""
+    x, y = ssim_images(3, (3, 1512, 2016), cuda_device)
+    image_bytes = x.numel() * 4
+    xg = x.clone().requires_grad_()
+    for grad, img, n_maps in ((False, xg, 0), (True, x, 0), (True, xg, 3)):
+        before = tracing.launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.set_grad_enabled(grad):
+            value = losses.ssim(img, y)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        after = tracing.launches()
+        assert after["ssim_forward"] - before["ssim_forward"] == 1
+        assert after["ssim_backward"] == before["ssim_backward"]
+        assert n_maps * image_bytes <= extra < (n_maps + 1) * image_bytes, (grad, extra)
+        assert value.requires_grad == bool(n_maps)
+
+
+@pytest.mark.cuda
+def test_ssim_records_its_counter_and_backward_range(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = ssim_images(4, (2, 3, 64, 96), cuda_device)
+    xg = x.clone().requires_grad_()
+    t0 = __import__("time").time_ns()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.autograd.grad(losses.ssim(xg, y), [xg])
+        torch.cuda.synchronize()
+    snap = tracing.snapshot(since_ns=t0)
+    assert [c["value"] for c in snap["counters"] if c["name"] == "loss.ssim_elems"] == [
+        2 * 3 * 64 * 96]
+    assert [r["name"] for r in snap["ranges"]].count("step.ssim.backward") == 1
+
+
 @pytest.mark.cuda
 def test_train_step_counts_launches(cuda_device):
     model, cam = scene(4, 200, 96, 64, cuda_device)
@@ -383,7 +530,7 @@ def test_train_step_counts_launches(cuda_device):
     state, metrics = step(state, cam, gt, aw, 2, 0.2, torch.zeros(3, device=cuda_device))
     torch.cuda.synchronize()
     after = tracing.launches()
-    assert [after[k] - before[k] for k in tracing.KERNELS] == [2, 2, 1, 1, 2, 2]
+    assert [after[k] - before[k] for k in tracing.KERNELS] == [2, 2, 1, 1, 2, 2, 1, 1]
     assert torch.isfinite(metrics.loss) and float(metrics.disparity_loss) > 0
 
 

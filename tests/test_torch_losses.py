@@ -63,3 +63,36 @@ def test_smooth_loss_matches_jax(shape):
     d = torch.from_numpy(disp).requires_grad_()
     (g_got,) = torch.autograd.grad(losses.smooth_loss(d, torch.from_numpy(a)), [d])
     np.testing.assert_allclose(g_got.numpy(), np.asarray(g_want), atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 37, 29), (2, 3, 16, 48), (3, 21, 12)])
+@pytest.mark.parametrize("size_average", [True, False], ids=["mean", "per_image"])
+def test_ssim_analytic_gradient_matches_autograd(shape, size_average):
+    """The kernels' formulas (ssim_maps_torch, ssim_backward_torch) against
+    autograd of the plain composition, at odd sizes where every pixel is
+    within the window's reach of a border (zero padding)."""
+    a, b, _ = images(4, shape)
+    x = torch.from_numpy(a).requires_grad_()
+    y = torch.from_numpy(b)
+    value = losses.ssim(x, y, size_average=size_average)
+    up = torch.from_numpy(np.random.default_rng(5).normal(size=value.shape).astype(np.float32))
+    (want,) = torch.autograd.grad(value, [x], grad_outputs=up)
+    got_value, maps = losses.ssim_maps_torch(x.detach(), y, size_average=size_average)
+    assert torch.equal(got_value, value.detach())  # the same operations in the same order
+    assert all(m.shape == x.shape for m in maps)
+    got = losses.ssim_backward_torch(x.detach(), y, maps, up, size_average=size_average)
+    # float32 sums of the same terms in another grouping, where the three
+    # blurred terms nearly cancel: ~3e-6 of the largest entry; a wrong
+    # factor, a term left out or the maps unblurred read 0.4-4
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_ssim_on_the_cpu_launches_no_kernel():
+    from binocular3dgs_torch import tracing
+
+    a, b, _ = images(6, (3, 20, 24))
+    before = tracing.launches()
+    x = torch.from_numpy(a).requires_grad_()
+    torch.autograd.grad(losses.ssim(x, torch.from_numpy(b)), [x])
+    assert tracing.launches() == before

@@ -242,6 +242,7 @@ def test_launches_count_with_and_without_a_profiler(monkeypatch):
         tracing.launched("warp_forward")
         tracing.launched("blend_backward")
     assert tracing.launches() == dict(blend_forward=0, blend_backward=1, warp_forward=2,
-                                      warp_backward=0, project_forward=0, project_backward=0)
+                                      warp_backward=0, project_forward=0, project_backward=0,
+                                      ssim_forward=0, ssim_backward=0)
     assert [(c["name"], c["value"]) for c in since(t0)["counters"]] == [
         ("kernel.warp_forward.launches", 1), ("kernel.blend_backward.launches", 1)]
