@@ -10,12 +10,26 @@ integer outputs:
     rank_offsets[g+1]) of its clamped tile rectangle (CUDA getRect), row
     major; a slot finds its rank with one searchsorted over the N-sized
     prefix sums
-  * one `torch.sort` over int64 `(tile << gbits) | rank` keys. int64 leaves
-    room for any capacity and tile count, so the JAX package's split between
-    a packed int32 path and a fallback is not needed
-  * every slot past the pair capacity or past the emitted pairs gets the
-    sentinel key `num_tiles << gbits`, sorting behind all real pairs
-  * per-tile [start, count) ranges via a searchsorted of num_tiles queries
+  * the slots below the pair capacity sorted by (tile, rank); the slots past
+    the capacity are dropped (the deepest ranks' last)
+  * per-tile [start, count) ranges of the sorted pairs
+
+`bin_gaussians_torch` is the plain version: one `torch.sort` over int64
+`(tile << gbits) | rank` keys of every slot of the capacity, the slots past
+the emitted pairs given the sentinel key `num_tiles << gbits`, sorting
+behind all real pairs, and the tile ranges by a searchsorted of num_tiles
+queries. int64 leaves room for any capacity and tile count, so the JAX
+package's split between a packed int32 path and a fallback is not needed.
+It runs on any device and is what the CPU runs.
+
+`bin_gaussians` runs it on the CPU and, for CUDA tensors, the hand-written
+kernels of csrc/binning.cu, which walk the emitted pairs only (a stable
+radix sort by tile of the emission order, which is rank-major) and read
+their count from the device; on a card it launches them or raises. Their
+outputs equal the plain version's on every slot below `bin_slots`; the
+card leaves `pair_gauss`, `pair_tile` and `sorted_pos` unwritten from
+`bin_slots` on, where the plain version holds its sentinel tail (the
+blend reads each tile's segment only).
 
 `pair_gauss` is in DEPTH-RANK space: callers gather per-gaussian data with
 `reordered[pair_gauss]` where `reordered = original[order]`.
@@ -27,6 +41,12 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
+
+INT32_MAX = 2**31 - 1
+SORT_RADIX_BITS = 8  # csrc/binning.cu: one pass of the sort per 8 bits of the tile id
+SORT_TILE = 4096  # csrc/binning.cu: pairs per block of the sort
+
 
 class TileBinning(NamedTuple):
     pair_gauss: torch.Tensor  # (P,) int32 depth-rank of the gaussian per sorted pair
@@ -35,7 +55,10 @@ class TileBinning(NamedTuple):
     tile_count: torch.Tensor  # (T,) int32 number of pairs of each tile
     num_pairs: torch.Tensor  # () int32 total wanted pairs (before truncation)
     order: torch.Tensor  # (N,) int32 depth order: original index of rank i
-    rank_offsets: torch.Tensor  # (N+1,) int32 emission offset per depth rank
+    rank_offsets: torch.Tensor  # (N+1,) int32 emission offset per depth rank (saturated)
+    sorted_pos: torch.Tensor  # (P,) int32 sorted position of each emission slot < bin_slots
+    bin_slots: torch.Tensor  # () int32 slots sorted and gathered: min(num_pairs, P)
+    rank_of: torch.Tensor  # (N,) int32 depth rank of each gaussian (order's inverse)
 
 
 def tile_grid(width: int, height: int, tile_size: int) -> tuple[int, int]:
@@ -72,7 +95,7 @@ def _bits(n: int) -> int:
 
 
 @torch.no_grad()
-def bin_gaussians(
+def bin_gaussians_torch(
     mean2d: torch.Tensor,  # (N, 2) pixel coords
     radius: torch.Tensor,  # (N,) isotropic or (N, 2) per-axis extents; 0 => culled
     depth: torch.Tensor,  # (N,)
@@ -108,18 +131,115 @@ def bin_gaussians(
 
     bg = _bits(n - 1)
     key = torch.where(valid, (tile << bg) | g, num_tiles << bg)
-    key_s, _ = torch.sort(key)
+    key_s, perm = torch.sort(key, stable=True)
     tile_s = (key_s >> bg).to(torch.int32)
     gauss_s = torch.where(tile_s < num_tiles, key_s & ((1 << bg) - 1), 0).to(torch.int32)
 
     tile_ids = torch.arange(num_tiles + 1, device=dev, dtype=torch.int32)
     starts = torch.searchsorted(tile_s, tile_ids, out_int32=True)
+    slot = torch.arange(pair_capacity, device=dev, dtype=torch.int32)
+    order32 = order.to(torch.int32)
     return TileBinning(
         pair_gauss=gauss_s,
         pair_tile=tile_s,
         tile_start=starts[:-1].contiguous(),
         tile_count=(starts[1:] - starts[:-1]).contiguous(),
-        num_pairs=num_pairs.to(torch.int32),
-        order=order.to(torch.int32),
-        rank_offsets=torch.cat([cum_end.new_zeros(1), cum_end]).to(torch.int32),
+        num_pairs=torch.clamp(num_pairs, max=INT32_MAX).to(torch.int32),
+        order=order32,
+        rank_offsets=torch.clamp(torch.cat([cum_end.new_zeros(1), cum_end]),
+                                 max=INT32_MAX).to(torch.int32),
+        sorted_pos=torch.empty_like(slot).index_put_((perm,), slot),
+        bin_slots=torch.clamp(num_pairs, max=pair_capacity).to(torch.int32),
+        rank_of=torch.empty_like(order32).index_put_(
+            (order,), torch.arange(n, device=dev, dtype=torch.int32)),
     )
+
+
+def sort_passes(num_tiles: int) -> int:
+    """Passes of csrc/binning.cu's radix sort: 8 bits of the largest tile
+    id each."""
+    return -(-max(int(num_tiles - 1).bit_length(), 1) // SORT_RADIX_BITS)
+
+
+def bin_launches(num_tiles: int) -> dict:
+    """The kernels csrc/binning.cu launches to bin one render, by name."""
+    passes = sort_passes(num_tiles)
+    return dict(bin_keys=1, bin_count=1, bin_emit=1, bin_histogram=passes - 1,
+                bin_scan=passes, bin_scatter=passes, bin_ranges=1)
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _bin_cuda(mean2d, radius, depth, width, height, tile_size, pair_capacity) -> TileBinning:
+    from .cuda_build import load_library
+
+    TW, TH = tile_grid(width, height, tile_size)
+    T, n, P = TW * TH, mean2d.shape[0], pair_capacity
+    cols = 2 if radius.ndim == 2 else 1
+    for name, x, shape in (("mean2d", mean2d, (n, 2)), ("radius", radius, (n, cols)[:radius.ndim]),
+                           ("depth", depth, (n,))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != mean2d.device:
+            raise ValueError(f"bin_gaussians: {name} must be {shape} float32 on "
+                             f"{mean2d.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if n < 1 or not 1 <= P <= INT32_MAX or T > INT32_MAX // 2:
+        raise ValueError(f"bin_gaussians: {n} rows, pair capacity {P}, {T} tiles out of range")
+    mean2d, radius, depth = mean2d.contiguous(), radius.contiguous(), depth.contiguous()
+    passes = sort_passes(T)
+    dev = mean2d.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = torch.empty(n, dtype=torch.float32, device=dev)
+        _check(lib.b3dgs_bin_keys(radius.data_ptr(), cols, depth.data_ptr(), n, key.data_ptr(),
+                                  stream), "bin_keys")
+        order = torch.argsort(key, stable=True)
+        order32, rank_of = torch.empty(n, **i32), torch.empty(n, **i32)
+        rect = torch.empty(n, 4, **i32)
+        counts = torch.empty(n + 1, dtype=torch.int64, device=dev)
+        _check(lib.b3dgs_bin_count(order.data_ptr(), mean2d.data_ptr(), radius.data_ptr(), cols,
+                                   n, tile_size, TW, TH, order32.data_ptr(), rank_of.data_ptr(),
+                                   rect.data_ptr(), counts.data_ptr(), stream), "bin_count")
+        offsets = torch.cumsum(counts, 0)
+        pair = [torch.empty(P, **i32) for _ in range(3 + 2 * min(passes, 3))]
+        pair_tile, pair_gauss, sorted_pos, tile_e, rank_e, *ping_pong = pair
+        ptr = [x.data_ptr() for x in ping_pong] + [None] * (4 - len(ping_pong))
+        hist = torch.empty((-(-P // SORT_TILE) + 1) * (1 << SORT_RADIX_BITS), **i32)
+        tile_start, tile_count = torch.empty(T, **i32), torch.empty(T, **i32)
+        rank_offsets = torch.empty(n + 1, **i32)
+        num_pairs, bin_slots = torch.empty((), **i32), torch.empty((), **i32)
+        _check(lib.b3dgs_bin_sort(
+            offsets.data_ptr(), rect.data_ptr(), n, P, TW, T, passes, tile_e.data_ptr(),
+            rank_e.data_ptr(), *ptr, hist.data_ptr(), pair_tile.data_ptr(),
+            pair_gauss.data_ptr(), sorted_pos.data_ptr(), tile_start.data_ptr(),
+            tile_count.data_ptr(), rank_offsets.data_ptr(), num_pairs.data_ptr(),
+            bin_slots.data_ptr(), stream), "bin_sort")
+    for name, k in bin_launches(T).items():
+        for _ in range(k):
+            tracing.launched(name)
+    return TileBinning(pair_gauss=pair_gauss, pair_tile=pair_tile, tile_start=tile_start,
+                       tile_count=tile_count, num_pairs=num_pairs, order=order32,
+                       rank_offsets=rank_offsets, sorted_pos=sorted_pos, bin_slots=bin_slots,
+                       rank_of=rank_of)
+
+
+def bin_gaussians(
+    mean2d: torch.Tensor,  # (N, 2) pixel coords
+    radius: torch.Tensor,  # (N,) isotropic or (N, 2) per-axis extents; 0 => culled
+    depth: torch.Tensor,  # (N,)
+    width: int,
+    height: int,
+    tile_size: int,
+    pair_capacity: int,
+) -> TileBinning:
+    """The tile binning of module docstring: csrc/binning.cu's kernels for
+    CUDA tensors, `bin_gaussians_torch` for CPU tensors."""
+    if mean2d.is_cuda:
+        return _bin_cuda(mean2d, radius, depth, width, height, tile_size, pair_capacity)
+    if mean2d.device.type == "cpu":
+        return bin_gaussians_torch(mean2d, radius, depth, width, height, tile_size,
+                                   pair_capacity)
+    raise ValueError(f"bin_gaussians: unsupported device {mean2d.device}")

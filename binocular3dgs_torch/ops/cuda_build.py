@@ -111,6 +111,11 @@ def load_library() -> ctypes.CDLL:
                 "b3dgs_project_backward": [P] * 12 + [LL, I, I, I, I, F, F] + [P] * 13,
                 "b3dgs_ssim_forward": [P, P, I, I, I, P, I, P, LL, P, P, P, P, P],
                 "b3dgs_ssim_backward": [P] * 6 + [I, I, I, P, I, P, P],
+                "b3dgs_bin_keys": [P, I, P, LL, P, P],
+                "b3dgs_bin_count": [P, P, P, I, LL, I, I, I, P, P, P, P, P],
+                "b3dgs_bin_sort": [P, P, LL, LL, I, I, I] + [P] * 16,
+                "b3dgs_gather_forward": [P] * 8 + [LL, P, P],
+                "b3dgs_gather_backward": [P, LL, P, P, P, P, LL] + [P] * 7,
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

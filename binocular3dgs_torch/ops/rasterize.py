@@ -6,24 +6,32 @@ Counterpart of `binocular3dgs_tpu/ops/rasterize.py` (`render_tiled`,
   1. vertex stage (ops/project.py)
   2. tile binning (ops/binning.py): gaussians depth-ordered once, pairs
      sorted by (tile, depth rank)
-  3. a field-major (10, N) record table, depth-reordered once
-     (`fields[:, order]`), then gathered per pair (`fields_d[:, pair_gauss]`)
-     into (10, P): each tile's records are one contiguous segment; both by
-     `index_select`, the pair gather with a backward that adds in a fixed
-     order
+  3. a field-major (10, P) record table of the sorted pairs: each tile's
+     records are one contiguous segment (`gather_records`)
   4. blend (ops/blend_cuda.py): the CUDA kernel reads each tile's exact
      segment, so the pair axis carries no chunk padding
   5. (5, T, S) tile planes -> (5, H, W) image planes, cropped
 
 Gradients: the blend's autograd backward (kernel B2) gives the per-pair
-record cotangents; the pair gather's backward sums them per gaussian, as
+record cotangents; the record gather's backward sums them per gaussian, as
 the JAX package's hand-written VJP does (`rasterize.py:124-237`, XLA, not
 Pallas). Autograd's own backward of `index_select` is an `index_add_` whose
 float atomics add a gaussian's pairs in another order on every run; here
-the pairs are sorted by gaussian (a stable sort) and each gaussian's
-segment is summed in pair order, so a training step repeats bit for bit.
-The depth reorder keeps autograd's `index_add_`: a permutation adds one
-term onto each zero, which no order changes.
+each gaussian's pair cotangents are summed in a fixed order, so a training
+step repeats bit for bit:
+
+  * on the CPU (the plain version) the record table is the fields
+    depth-reordered once (`fields[:, order]`) and gathered per pair
+    (`fields_d[:, pair_gauss]`), both by `index_select`; the pair gather's
+    backward sorts the pairs by gaussian (a stable sort) and sums each
+    gaussian's segment in pair order (`segment_sum_columns`), the depth
+    reorder keeps autograd's `index_add_` (a permutation adds one term onto
+    each zero, which no order changes);
+  * on a card one kernel writes the records of the sorted pairs through
+    `order[pair_gauss]` and one sums each gaussian's slots in emission order
+    straight into the fields' gradients (csrc/binning.cu): the same float
+    additions in the same order, over the emitted pairs only.
+
 The vertex stage's gradient down to the parameters and the optional
 `mean2d_carrier` is plain autograd on the CPU and its own backward kernel
 on a card (ops/project.py).
@@ -50,7 +58,7 @@ from .. import resolve_device, tracing
 from ..config import RasterConfig
 from ..core.camera import Camera
 from ..models.gaussians import GaussianModel
-from .binning import bin_gaussians, tile_grid
+from .binning import TileBinning, bin_gaussians, tile_grid
 from .blend_cuda import blend_forward
 from .project import ProjectedGaussians, project_for_render
 from .rasterize_reference import RenderOutput
@@ -78,10 +86,10 @@ def _build_fields(proj: ProjectedGaussians) -> torch.Tensor:
 
 
 class _GatherRecords(torch.autograd.Function):
-    """fields_d[:, index] (10, P); the backward sums each column's
-    cotangents in a fixed order: the pairs stably sorted by column, then one
-    segment sum per column in pair order (`torch.segment_reduce` adds each
-    segment sequentially)."""
+    """fields_d[:, index] (10, P), the plain version; the backward sums each
+    column's cotangents in a fixed order: the pairs stably sorted by
+    column, then one segment sum per column in pair order
+    (`torch.segment_reduce` adds each segment sequentially)."""
 
     @staticmethod
     def forward(ctx, fields_d, index):
@@ -108,17 +116,83 @@ def segment_sum_columns(d: torch.Tensor, index: torch.Tensor, n: int) -> torch.T
     return torch.segment_reduce(rows, "sum", offsets=offsets, axis=0, unsafe=True).T
 
 
-def _gather_index(binning, num_tiles: int) -> torch.Tensor:
-    """The pair gather's column per slot: `pair_gauss`, except that the
-    slots past the emitted pairs (sentinel tile, rank 0 in `pair_gauss`)
-    take distinct columns. The blend never reads those slots and their
-    cotangents are 0, but as one column repeated for every unused slot of
-    the capacity they would make that column's segment in the gather's
-    backward as long as the capacity's unused tail."""
-    P = binning.pair_gauss.shape[0]
-    spread = torch.arange(P, device=binning.pair_gauss.device, dtype=torch.int32)
-    spread = spread % binning.order.shape[0]
-    return torch.where(binning.pair_tile < num_tiles, binning.pair_gauss, spread)
+def gather_backward(d_records: torch.Tensor, binning: TileBinning) -> tuple:
+    """The gradients (mean2d, conic, opacity, color, depth) of the card's
+    record gather from the cotangent `d_records` (10, P): the sorted pairs'
+    cotangents made one record a pair, then each gaussian's slots from
+    `rank_offsets[g]` to `min(rank_offsets[g + 1], P)`, read at their
+    `sorted_pos`, summed in ascending slot order from 0 (the sums of
+    `segment_sum_columns` over the plain version's gather, bit for bit).
+    CUDA tensors only."""
+    from .cuda_build import load_library
+
+    d_records = d_records.contiguous()
+    P, n = d_records.shape[1], binning.order.shape[0]
+    if d_records.shape[0] != 10 or P != binning.sorted_pos.shape[0]:
+        raise ValueError(f"gather_backward: d_records must be (10, {binning.sorted_pos.shape[0]})"
+                         f", got {tuple(d_records.shape)}")
+    new = d_records.new_empty
+    grads = (new((n, 2)), new((n, 3)), new((n,)), new((n, 3)), new((n,)))
+    by_pair = new((P, 12))  # a 48-byte record a sorted pair, the first bin_slots written
+    with torch.cuda.device(d_records.device):
+        err = load_library().b3dgs_gather_backward(
+            d_records.data_ptr(), P, binning.sorted_pos.data_ptr(), binning.bin_slots.data_ptr(),
+            binning.rank_offsets.data_ptr(), binning.rank_of.data_ptr(), n, by_pair.data_ptr(),
+            *(g.data_ptr() for g in grads),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gather_backward kernel launch failed: cudaError {err}")
+    tracing.launched("gather_transpose")
+    tracing.launched("gather_backward")
+    return grads
+
+
+class _GatherPairs(torch.autograd.Function):
+    """The card's record gather: (10, P) records of the sorted pairs from
+    the projected fields, their first `bin_slots` columns written by one
+    kernel (csrc/binning.cu), and `gather_backward`."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, color, depth, binning):
+        from .cuda_build import load_library
+
+        P, n = binning.pair_gauss.shape[0], binning.order.shape[0]
+        fields = [x.contiguous() for x in (mean2d, conic, opacity, color, depth)]
+        for x, shape in zip(fields, ((n, 2), (n, 3), (n,), (n, 3), (n,))):
+            if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_cuda:
+                raise ValueError(f"gather_records: a field must be {shape} float32 on a card, "
+                                 f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+        records = fields[0].new_empty((10, P))
+        with torch.cuda.device(records.device):
+            err = load_library().b3dgs_gather_forward(
+                *(x.data_ptr() for x in fields), binning.order.data_ptr(),
+                binning.pair_gauss.data_ptr(), binning.bin_slots.data_ptr(), P,
+                records.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gather_forward kernel launch failed: cudaError {err}")
+        tracing.launched("gather_forward")
+        ctx.binning = binning
+        return records
+
+    @staticmethod
+    @tracing.region("render.gather.backward")
+    def backward(ctx, d_records):
+        grads = gather_backward(d_records, ctx.binning)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def gather_records(proj: ProjectedGaussians, binning: TileBinning) -> torch.Tensor:
+    """(10, P) records of the sorted pairs in the blend's row layout,
+    differentiable in the projected fields: on the CPU `_build_fields`
+    depth-reordered and gathered by `pair_gauss` (`_GatherRecords`), on a
+    card `_GatherPairs`, which writes the first `bin_slots` columns only."""
+    if proj.mean2d.is_cuda:
+        return _GatherPairs.apply(proj.mean2d, proj.conic, proj.opacity, proj.color, proj.depth,
+                                  binning)
+    if proj.mean2d.device.type != "cpu":
+        raise ValueError(f"gather_records: unsupported device {proj.mean2d.device}")
+    fields_d = torch.index_select(_build_fields(proj), 1, binning.order)
+    return _GatherRecords.apply(fields_d, binning.pair_gauss)
 
 
 def _tiles_to_planes(tiles: torch.Tensor, TW: int, TH: int, ts: int, H: int, W: int):
@@ -179,9 +253,11 @@ def rasterize_projected(
     tracing.count("render.rows", N)
     tracing.count("render.pairs_wanted", binning.num_pairs)
     tracing.count("render.pair_capacity", pair_capacity)
+    # the slots the sort and the gather walk: the emitted ones on a card,
+    # the whole capacity in the plain version
+    tracing.count("render.bin_slots", binning.bin_slots if proj.mean2d.is_cuda else pair_capacity)
     with tracing.region("render.gather"):
-        fields_d = torch.index_select(_build_fields(proj), 1, binning.order)
-        records = _GatherRecords.apply(fields_d, _gather_index(binning, TW * TH))  # (10, P)
+        records = gather_records(proj, binning)  # (10, P)
     with tracing.region("render.blend"):
         out5, _ = blend_forward(records, binning.tile_start, binning.tile_count, TW, TH, ts)
     with tracing.region("render.planes"):

@@ -43,7 +43,9 @@ from torch.autograd import profiler as _profiler
 
 CAPACITY = 1 << 18
 KERNELS = ("blend_forward", "blend_backward", "warp_forward", "warp_backward",
-           "project_forward", "project_backward", "ssim_forward", "ssim_backward")
+           "project_forward", "project_backward", "ssim_forward", "ssim_backward",
+           "bin_keys", "bin_count", "bin_emit", "bin_histogram", "bin_scan", "bin_scatter",
+           "bin_ranges", "gather_forward", "gather_transpose", "gather_backward")
 
 # (id, name, thread, start_ns, end_ns, parent id, attrs), appended when a range ends
 _ranges: collections.deque = collections.deque(maxlen=CAPACITY)

@@ -39,7 +39,8 @@ width and fails (non-zero exit) if any phase fails:
      `make_train_step(binocular=True)`, 3 warm-up and 10 timed steps with the
      launch counters read around exactly the timed ones (2 blend forward, 2
      blend backward, 1 warp forward, 1 warp backward, 2 vertex forward, 2
-     vertex backward, 1 SSIM forward and 1 SSIM backward per step); step time,
+     vertex backward, 1 SSIM forward and 1 SSIM backward per step, and per
+     render the binning kernels and the record gather's three); step time,
      per-stage times, peak memory, device busy share and top kernels; one
      step at 5k gaussians and 256x192 on the card against the CPU
  10. entry point: `cli train` (densification and the binocular branch
@@ -54,7 +55,8 @@ width and fails (non-zero exit) if any phase fails:
      spatial_lr_scale), iteration 60 reached with a finite loss, 2 blend forward,
      2 blend backward, 1 warp forward, 1 warp backward, 2 vertex forward, 2
      vertex backward, 1 SSIM forward and 1 SSIM backward launches per resumed
-     step, and the eight kernels named in the trace
+     step with each render's binning and gather kernels, and the eight
+     kernels named in the trace
  12. `cli spiral --n_frames 8 --no_video` of the phase-10 model at 1008x756
      (the scene's poses_bounds.npy): 24 PNGs, 8 blend forward launches,
      something rendered in every frame; ms per frame
@@ -103,7 +105,8 @@ width and fails (non-zero exit) if any phase fails:
      against `render_tiled` (image and alpha 1e-5, depth 1e-4, radii
      equal), B1 launched once; one sharded step against the single step
      (loss 1e-5 relative, adam_m and grad_accum within 1e-3 of their norms),
-     launches 2/2/1/1/2/2/1/1; where the capacity divides: `shard_gaussians`
+     launches 2/2/1/1/2/2/1/1 and two bands' binning and gathers; where the
+     capacity divides: `shard_gaussians`
      against the replicated render (the same tolerances), 3 `shard_adam`
      steps against 3 replicated ones bit for bit with capacity/ranks moment
      rows, and the replicated run twice bit for bit; then the step median
@@ -128,6 +131,15 @@ width and fails (non-zero exit) if any phase fails:
      ssim_backward_torch of S1's maps, two launches of each bit for bit;
      device times with L2 flushed beside the bounds of the work SSIM needs,
      the plain version's time and device operations per call
+ 24. (run after phase 23) binning and the record gather (csrc/binning.cu)
+     at the cells' row counts and image sizes (phase 22's rows, projected):
+     every output of the binning kernels equal to bin_gaussians_torch's, the
+     gathered records to the plain gather's and the gather backward to the
+     plain segment sums, bit for bit; the three stages' device times with L2
+     flushed beside the bytes they must move, their device operations, the
+     plain stages' times and device operations, and the launch gate of one
+     render (each binning kernel as bin_launches counts it, one gather
+     forward, one gather backward)
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -206,6 +218,16 @@ SSIM_SHAPES = (("llff3", 1512, 2016), ("blender8", 400, 400))
 SSIM_FWD_BYTES, SSIM_BWD_BYTES = 20, 24
 SSIM_FWD_INSTR, SSIM_BWD_INSTR = 145, 72
 SSIM_NO_TPU_KERNEL = "none: the JAX package's SSIM (binocular3dgs_tpu/ops/losses.py) is XLA"
+
+# binning and the record gather (phase 24): the bytes the three stages must
+# move, each input read once and each output written once. Per emitted
+# pair: binning's pair_tile, pair_gauss and sorted_pos (12), its record
+# (40) and its cotangent read back (40); per row: binning's reads of mean2d,
+# the extents and depth (20), its order, rank_offsets and rank_of (12) and
+# the gradients of the five fields (40); per emitting row its fields (40)
+BIN_BYTES_PER_PAIR, BIN_BYTES_PER_ROW, BIN_BYTES_PER_EMITTING_ROW = 92, 72, 40
+BIN_NO_TPU_KERNEL = ("none: the JAX package bins with XLA's sort and gathers with XLA "
+                     "(binocular3dgs_tpu/ops/binning.py, rasterize.py)")
 
 W, H, N_GAUSS, PAIRS_PER_GAUSSIAN = 1008, 756, 100_000, 6
 # the overdraw shape of phases 4 and 7: make_workload's draw with large,
@@ -400,12 +422,24 @@ def cell_evaluations(torch, records, tile_start, tile_count, TW, ts):
     return CELL_W * CELL_H * int(_cell_mask(records[:, pair], x0, y0).sum())
 
 
+def sorted_records(torch, proj, b):
+    """The card's records of binning `b` (csrc/binning.cu's gather), the
+    slots past the sorted pairs zeroed: the plain blend reads past a tile's
+    pairs, where the kernel leaves the slots unwritten."""
+    from binocular3dgs_torch.ops.rasterize import gather_records
+
+    with torch.no_grad():
+        records = gather_records(proj, b)
+    records[:, int(b.bin_slots):] = 0.0
+    return records
+
+
 def bin_records(torch, model, cam, raster, grow=False):
     """(records, tile_start, tile_count, TW, TH, ts, binning, pair capacity)
     of the port's project -> bin -> gather for `cam`. With `grow`,
     pairs_per_gaussian doubles from raster's until no pair overflows."""
     from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
-    from binocular3dgs_torch.ops.rasterize import _build_fields, project_for_render
+    from binocular3dgs_torch.ops.rasterize import project_for_render
 
     ts = raster.tile_size
     TW, TH = tile_grid(cam.width, cam.height, ts)
@@ -418,7 +452,7 @@ def bin_records(torch, model, cam, raster, grow=False):
         if not grow or int(b.num_pairs) <= cap:
             break
         ppg *= 2
-    records = _build_fields(proj)[:, b.order][:, b.pair_gauss].contiguous()
+    records = sorted_records(torch, proj, b)
     return records, b.tile_start, b.tile_count, TW, TH, ts, b, cap
 
 
@@ -907,21 +941,173 @@ def phase_ssim(torch, seed, device, tag="[23 ssim]"):
     return kernels
 
 
+def stage_device(torch, fn, reps=5):
+    """(device ms per call, device operations per call, the five largest
+    operations by device time) of fn() under a CUDA-only profiler with L2
+    flushed before each call; the flushes, profiled alone, are taken out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")
+
+    def run(body):
+        body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                body()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return (sum(e.self_device_time_total for e in evs), sum(e.count for e in evs),
+                {e.key: e.self_device_time_total / reps / 1e3 for e in evs})
+
+    us, ops, per_op = run(fn)
+    us0, ops0, _ = run(lambda: None)
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:5]
+    return (us - us0) / 1e3 / reps, (ops - ops0) / reps, [(k[:60], v) for k, v in top]
+
+
+def phase_binning(torch, seed, device, tag="[24 binning]"):
+    """Binning, the record gather and its backward (csrc/binning.cu) at the
+    cells' rows and image sizes against the plain stages: every output bit
+    for bit, device times with L2 flushed beside the bytes the stages must
+    move, device operations, and one render's launch gate."""
+    from binocular3dgs_torch.config import RasterConfig
+    from binocular3dgs_torch.ops.binning import (
+        bin_gaussians, bin_gaussians_torch, bin_launches, tile_grid,
+    )
+    from binocular3dgs_torch.ops.rasterize import (
+        _build_fields, _GatherRecords, gather_records, project_for_render,
+    )
+
+    raster = RasterConfig()
+    names = ("mean2d", "conic", "opacity", "color", "depth")
+    stages = {"bin": {}, "gather": {}, "gather_backward": {}}
+    for cell, n, active_n, width, height in VERTEX_SHAPES:
+        model, cam = vertex_rows(seed + 24, n, active_n, width, height, device)
+        with torch.no_grad():
+            proj = project_for_render(cam, model, raster)
+        leaves = {k: getattr(proj, k).clone().requires_grad_(True) for k in names}
+        pj = proj._replace(**leaves)
+        ts, cap = raster.tile_size, raster.pairs_per_gaussian * n
+        TW, TH = tile_grid(width, height, ts)
+
+        def bin_():
+            return bin_gaussians(pj.mean2d, pj.bin_extent, pj.depth, width, height, ts, cap)
+
+        def bin_plain():
+            return bin_gaussians_torch(pj.mean2d, pj.bin_extent, pj.depth, width, height, ts,
+                                       cap)
+
+        launch_counts(reset=True)
+        b = bin_()
+        records = gather_records(pj, b)
+        cot = torch.zeros(10, cap, device=device)
+        E = int(b.bin_slots)
+        cot[:, :E] = torch.randn(10, E, generator=torch.Generator(device=device).manual_seed(
+            seed + 25), device=device)
+        grads = torch.autograd.grad(records, list(leaves.values()), cot, retain_graph=True)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        want_launches = dict(bin_launches(TW * TH), gather_forward=1, gather_transpose=1,
+                             gather_backward=1)
+        want_launches = {k: v for k, v in want_launches.items() if v}
+        check(launches == want_launches, f"{tag} {cell} one render's launches {launches}, "
+                                         f"expected {want_launches}")
+
+        bp = bin_plain()
+        spread = torch.where(torch.arange(cap, device=device) < E, bp.pair_gauss,
+                             torch.arange(cap, device=device, dtype=torch.int32) % n)
+        fields_d = torch.index_select(_build_fields(pj), 1, bp.order)
+        records_p = _GatherRecords.apply(fields_d, spread)
+        grads_p = torch.autograd.grad(records_p, list(leaves.values()), cot, retain_graph=True)
+        equal = {f: bool(torch.equal(getattr(b, f), getattr(bp, f))) for f in (
+            "order", "tile_start", "tile_count", "num_pairs", "rank_offsets", "rank_of",
+            "bin_slots")}
+        equal.update({f: bool(torch.equal(getattr(b, f)[:E], getattr(bp, f)[:E]))
+                      for f in ("pair_gauss", "pair_tile", "sorted_pos")})
+        equal["records"] = bool(torch.equal(records[:, :E], records_p[:, :E]))
+        equal.update({f"d_{k}": bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
+                      for k, x, y in zip(names, grads, grads_p)})
+        emitting = int((b.rank_offsets[1:] > b.rank_offsets[:-1]).sum())
+        log(f"{tag} {cell}: {n} rows ({active_n} active, {emitting} emitting) at "
+            f"{width}x{height}, {TW * TH} tiles, {int(b.num_pairs)} pairs wanted of {cap} slots "
+            f"({E} sorted); equal to the plain stages bit for bit: {equal}; one render's "
+            f"launches {launches}")
+        check(all(equal.values()), f"{tag} {cell} differs from the plain stages: {equal}")
+
+        def gather():
+            with torch.no_grad():
+                return gather_records(pj, b)
+
+        def gather_plain():
+            with torch.no_grad():
+                return _GatherRecords.apply(torch.index_select(_build_fields(pj), 1, bp.order),
+                                            spread)
+
+        for stage, fn, plain in (
+                ("bin", bin_, bin_plain), ("gather", gather, gather_plain),
+                ("gather_backward",
+                 lambda: torch.autograd.grad(records, list(leaves.values()), cot,
+                                             retain_graph=True),
+                 lambda: torch.autograd.grad(records_p, list(leaves.values()), cot,
+                                             retain_graph=True))):
+            ms, ops, top = stage_device(torch, fn)
+            plain_ms, plain_ops, plain_top = stage_device(torch, plain)
+            stages[stage][cell] = dict(ms=ms, device_ops=ops, top=top, plain_ms=plain_ms,
+                                       plain_device_ops=plain_ops, plain_top=plain_top,
+                                       event_ms=median_ms(torch, fn, iters=10))
+        bytes_ = (BIN_BYTES_PER_PAIR * E + BIN_BYTES_PER_ROW * n
+                  + BIN_BYTES_PER_EMITTING_ROW * emitting)
+        bound_ms, bound_by, _, _ = kernel_bound(bytes_, 0)
+        total = sum(stages[k][cell]["ms"] for k in stages)
+        plain_total = sum(stages[k][cell]["plain_ms"] for k in stages)
+        log(f"{tag} {cell}: device ms with L2 flushed (operations) "
+            + ", ".join(f"{k} {v[cell]['ms']:.4f} ({v[cell]['device_ops']:.0f}) against the "
+                        f"plain {v[cell]['plain_ms']:.4f} ({v[cell]['plain_device_ops']:.0f})"
+                        for k, v in stages.items())
+            + f"; together {total:.4f} ms against {plain_total:.4f}, bound {bytes_} B -> "
+            f"{bound_ms:.4f} ms ({total / bound_ms:.2f}x); largest: "
+            + "; ".join(f"{k} {v[cell]['top']}" for k, v in stages.items()))
+        check(total >= bound_ms, f"{tag} {cell} reads {total} ms, below its bound {bound_ms}")
+        for k in stages:
+            stages[k][cell].update(rows=n, pairs=E, tiles=TW * TH)
+        stages["bin"][cell].update(bound_ms=bound_ms, bytes=bytes_, together_ms=total,
+                                   plain_together_ms=plain_total, parity=equal,
+                                   launches=launches)
+        del model, proj, pj, leaves, b, bp, records, records_p, grads, grads_p, cot, fields_d
+        torch.cuda.empty_cache()
+    first = VERTEX_SHAPES[0][0]
+    kernels = []
+    for name, stage, note in (
+            ("bin_emit", "bin", "the binning kernels: " + ", ".join(bin_launches(2**16))),
+            ("gather_forward", "gather", "the record gather"),
+            ("gather_backward", "gather_backward", "the record gather's backward")):
+        res = stages[stage][first]
+        kernels.append(dict(
+            name=name, stage=note, route="cuda", source="binocular3dgs_torch/csrc/binning.cu",
+            replaces=BIN_NO_TPU_KERNEL, launches=None, ms=res["ms"], event_ms=res["event_ms"],
+            plain_ms=res["plain_ms"], bound_ms=stages["bin"][first]["bound_ms"] if
+            stage == "bin" else None, bound_by="bytes of the three stages together",
+            library_ms=None, library_note="none: no one PyTorch call bins or gathers",
+            cells=stages[stage]))
+    return kernels
+
+
 def plain_render_image(torch, cam, model, bg, raster):
     """The image of render_tiled with the blend done by its plain PyTorch
     version, from the rasterizer's own stages."""
     from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
     from binocular3dgs_torch.ops.blend_cuda import blend_forward_torch
-    from binocular3dgs_torch.ops.rasterize import (
-        _build_fields, _tiles_to_planes, project_for_render,
-    )
+    from binocular3dgs_torch.ops.rasterize import _tiles_to_planes, project_for_render
 
     ts = raster.tile_size
     TW, TH = tile_grid(cam.width, cam.height, ts)
     proj = project_for_render(cam, model, raster=raster)
     b = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, cam.width, cam.height, ts,
                       raster.pairs_per_gaussian * model.capacity)
-    records = _build_fields(proj)[:, b.order][:, b.pair_gauss]
+    records = sorted_records(torch, proj, b)
     out5, _ = blend_forward_torch(records, b.tile_start, b.tile_count, TW, TH, ts)
     planes = _tiles_to_planes(out5, TW, TH, ts, cam.height, cam.width)
     return planes[0:3] + planes[4][None] * bg[:, None, None]
@@ -933,7 +1119,7 @@ def phase_main_path(torch, model, device, raster):
     from binocular3dgs_torch.ops import blend_cuda
     from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
     from binocular3dgs_torch.ops.rasterize import (
-        _build_fields, _tiles_to_planes, project_for_render, render_tiled,
+        _tiles_to_planes, gather_records, project_for_render, render_tiled,
     )
     from binocular3dgs_torch.ops.rasterize_reference import render_dense
 
@@ -997,12 +1183,12 @@ def phase_main_path(torch, model, device, raster):
                                                       device=device))
     proj = project_for_render(cam, model, raster=raster)
     b = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, W, H, ts, cap)
-    records = _build_fields(proj)[:, b.order][:, b.pair_gauss]
+    records = gather_records(proj, b)
     out5, _ = blend_cuda.blend_forward(records, b.tile_start, b.tile_count, TW, TH, ts)
     stages = {
         "project": lambda: project_for_render(cam, model, raster=raster),
         "bin": lambda: bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, W, H, ts, cap),
-        "gather": lambda: _build_fields(proj)[:, b.order][:, b.pair_gauss],
+        "gather": lambda: gather_records(proj, b),
         "blend": lambda: blend_cuda.blend_forward(records, b.tile_start, b.tile_count, TW, TH, ts),
         "planes": lambda: _tiles_to_planes(out5, TW, TH, ts, H, W).contiguous(),
     }
@@ -1130,6 +1316,16 @@ def phase_entry_point(torch, model, scene, work):
 _LAUNCH_BASE = {}
 
 
+def render_launches(renders, backward, width, height, tile_size=16):
+    """The launches of the binning and record gather kernels in `renders`
+    renders of `width` x `height`, `backward` of them differentiated."""
+    from binocular3dgs_torch.ops.binning import bin_launches, tile_grid
+
+    TW, TH = tile_grid(width, height, tile_size)
+    out = {k: v * renders for k, v in bin_launches(TW * TH).items()}
+    return dict(out, gather_forward=renders, gather_transpose=backward, gather_backward=backward)
+
+
 def launch_counts(reset=False):
     """The kernels' launches (binocular3dgs_torch.tracing) since the last
     call with `reset`."""
@@ -1246,7 +1442,8 @@ def phase_train(torch, device, seed):
     expected = dict(blend_forward=2 * TRAIN_STEPS, blend_backward=2 * TRAIN_STEPS,
                     warp_forward=TRAIN_STEPS, warp_backward=TRAIN_STEPS,
                     project_forward=2 * TRAIN_STEPS, project_backward=2 * TRAIN_STEPS,
-                    ssim_forward=TRAIN_STEPS, ssim_backward=TRAIN_STEPS)
+                    ssim_forward=TRAIN_STEPS, ssim_backward=TRAIN_STEPS,
+                    **render_launches(2 * TRAIN_STEPS, 2 * TRAIN_STEPS, W, H))
     step_ms = [s.elapsed_time(e) for s, e in events]
     losses = [float(m.loss + m.disparity_loss) for m in metrics]
     log(f"[9 train] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-ups: launches {counts} "
@@ -1479,9 +1676,11 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
     with open(os.path.join(out, "train_log.json")) as f:
         train_log = json.load(f)
     steps = 30
+    cam0 = probe.trainer.scene.train_views[0].camera
     expected = dict(blend_forward=2 * steps, blend_backward=2 * steps, warp_forward=steps,
                     warp_backward=steps, project_forward=2 * steps, project_backward=2 * steps,
-                    ssim_forward=steps, ssim_backward=steps)
+                    ssim_forward=steps, ssim_backward=steps,
+                    **render_launches(2 * steps, 2 * steps, cam0.width, cam0.height))
     resumed = f"Resumed from {ckpt} at iteration 30" in text.getvalue()
     grown = [line for line in text.getvalue().splitlines() if "pair capacity grown" in line]
     ppg = probe.trainer.raster.pairs_per_gaussian
@@ -2612,6 +2811,7 @@ def sharded_rank(args):
 
 
 def sharded_rank_checks(torch, device, seed):
+    from binocular3dgs_torch.ops.binning import tile_grid
     from binocular3dgs_torch.ops.rasterize import render_tiled
     from binocular3dgs_torch.parallel.sharding import (
         gather_opt_state, make_mesh, make_sharded_render, make_sharded_train_step,
@@ -2671,8 +2871,11 @@ def sharded_rank_checks(torch, device, seed):
            for n in ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")}
     rel["grad_accum"] = rel_norm(s2.grad_accum, s1.grad_accum)
     loss_rel = abs(loss2 - loss1) / abs(loss1)
+    TW, TH = tile_grid(W, H, cfg.raster.tile_size)
+    band_h = -(-TH // world) * cfg.raster.tile_size
     expected = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1,
-                    project_forward=2, project_backward=2, ssim_forward=1, ssim_backward=1)
+                    project_forward=2, project_backward=2, ssim_forward=1, ssim_backward=1,
+                    **render_launches(2, 2, W, band_h))
     res["step"] = dict(loss_sharded=loss2, loss_single=loss1, loss_rel=loss_rel, rel_norm=rel,
                        launches=launches)
     log(f"{tag} one sharded step vs the single step: loss {loss2:.7f} vs {loss1:.7f} (rel "
@@ -2936,10 +3139,11 @@ def main():
         torch, view0, args.seed, trans=-Config().train.cam_trans_dist, tag="[8 warp opposite]")
     p1, p2 = phase_vertex(torch, args.seed, device)
     s1, s2 = phase_ssim(torch, args.seed, device)
+    bins = phase_binning(torch, args.seed, device)
     train = phase_train(torch, device, args.seed)
     b1["launches_serving"] = main_path["launches"]
     p1["launches_serving"] = main_path["project_launches"]
-    kernels = (b1, b2, w1, w2, p1, p2, s1, s2)
+    kernels = (b1, b2, w1, w2, p1, p2, s1, s2, *bins)
     for k in kernels:
         k["launches"] = train["launches"][k["name"]]
 

@@ -1,8 +1,10 @@
 """Tests that need a CUDA card: the hand-written kernels (blend forward B1,
 blend backward B2, warp forward W1 and backward W2, the vertex stage's
-forward and backward, SSIM's forward S1 and backward S2) against their
-plain PyTorch versions, and their launch counters around a render and a
-training step; a training step that repeats bit for bit; the port's ranges on the
+forward and backward, SSIM's forward S1 and backward S2, binning and the
+record gather with its backward) against their plain PyTorch versions,
+bit for bit where the kernels keep the plain version's order, and their
+launch counters around a render and a training step; a training step that
+repeats bit for bit; the port's ranges on the
 profiler's device clock, and a traced span of the trainer that syncs no
 more than an untraced one; the dense init's Farneback
 flow and growth scorer, and one PDCNet+ pass, RANSAC and warp, on the card
@@ -15,6 +17,7 @@ machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -28,7 +31,9 @@ from binocular3dgs_torch.models.gaussians import (
 )
 from binocular3dgs_torch.config import Config, RasterConfig
 from binocular3dgs_torch.ops import losses, warp
-from binocular3dgs_torch.ops.binning import bin_gaussians, tile_grid
+from binocular3dgs_torch.ops.binning import (
+    bin_gaussians, bin_gaussians_torch, bin_launches, tile_grid,
+)
 from binocular3dgs_torch.ops.blend_cuda import (
     blend_backward,
     blend_backward_torch,
@@ -38,7 +43,11 @@ from binocular3dgs_torch.ops.blend_cuda import (
 from binocular3dgs_torch.ops.project import (
     compute_cov3d, ewa_cov2d, project_backward, project_backward_torch, project_gaussians,
 )
-from binocular3dgs_torch.ops.rasterize import _build_fields, project_for_render, render_tiled
+from binocular3dgs_torch.ops.project import ProjectedGaussians
+from binocular3dgs_torch.ops.rasterize import (
+    _build_fields, _GatherRecords, _tiles_to_planes, gather_backward, project_for_render,
+    rasterize_projected, render_tiled, segment_sum_columns,
+)
 from binocular3dgs_torch.train.state import init_train_state
 from binocular3dgs_torch.train.step import make_train_step
 
@@ -80,10 +89,12 @@ def scene(seed, n, w, h, device, opacity=(0.2, 0.95), depth=(3.0, 9.0), elongate
 
 
 def records_for(model, cam, ppg=16):
+    """The blend's inputs from the plain binning and gather, whose unused
+    slots hold finite records (the plain blend reads past a tile's pairs)."""
     proj = project_for_render(cam, model)
     TW, TH = tile_grid(cam.width, cam.height, TS)
-    b = bin_gaussians(proj.mean2d, proj.bin_extent, proj.depth, cam.width, cam.height, TS,
-                      ppg * model.capacity)
+    b = bin_gaussians_torch(proj.mean2d, proj.bin_extent, proj.depth, cam.width, cam.height, TS,
+                            ppg * model.capacity)
     records = _build_fields(proj)[:, b.order][:, b.pair_gauss].contiguous()
     return records, b.tile_start, b.tile_count, TW, TH
 
@@ -530,7 +541,11 @@ def test_train_step_counts_launches(cuda_device):
     state, metrics = step(state, cam, gt, aw, 2, 0.2, torch.zeros(3, device=cuda_device))
     torch.cuda.synchronize()
     after = tracing.launches()
-    assert [after[k] - before[k] for k in tracing.KERNELS] == [2, 2, 1, 1, 2, 2, 1, 1]
+    per_step = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1,
+                    project_forward=2, project_backward=2, ssim_forward=1, ssim_backward=1,
+                    gather_forward=2, gather_transpose=2, gather_backward=2,
+                    **{k: 2 * v for k, v in bin_launches(6 * 4).items()})
+    assert {k: after[k] - before[k] for k in tracing.KERNELS} == per_step
     assert torch.isfinite(metrics.loss) and float(metrics.disparity_loss) > 0
 
 
@@ -670,6 +685,225 @@ def test_gather_segment_sum_repeats_and_matches_cpu(cuda_device):
         again = segment_sum_columns(d.to(cuda_device), idx.to(cuda_device), 3000)
         assert torch.equal(bits(again), bits(first))
     assert ((first.cpu() - want).abs() <= 1e-5 * want.abs().amax(1, keepdim=True)).all()
+
+
+def binning_inputs(seed, n, W, H, device, extent=(0.5, 24.0), culled=0.3, per_axis=True,
+                   crowd=0):
+    """Random splats for binning: centres over the image and a 32 px
+    margin, extents in `extent` px (per axis, or isotropic), a `culled`
+    share with extent 0, depths in [1, 9); the first `crowd` splats small
+    and in one tile."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    size = torch.tensor([W + 64.0, H + 64.0], device=device)
+    mean2d = torch.rand(n, 2, generator=g, device=device) * size - 32.0
+    ext = extent[0] + torch.rand(n, 2, generator=g, device=device) * (extent[1] - extent[0])
+    ext[torch.rand(n, generator=g, device=device) < culled] = 0.0
+    depth = torch.rand(n, generator=g, device=device) * 8.0 + 1.0
+    if crowd:
+        mean2d[:crowd] = torch.tensor([W / 2 + 3.0, H / 2 + 3.0], device=device)
+        ext[:crowd] = 2.0
+    return mean2d, ext if per_axis else ext[:, 0].contiguous(), depth
+
+
+# name, rows, W, H, pairs per row, binning_inputs' options
+BIN_CASES = [
+    ("llff", 2**20, 2016, 1512, 12, dict(culled=0.7)),
+    ("blender", 2**18, 400, 400, 12, dict(culled=0.6, extent=(0.5, 40.0))),
+    ("overflow", 20_000, 640, 480, 1, dict(extent=(8.0, 120.0))),
+    ("all_culled", 5_000, 320, 240, 12, dict(culled=1.0)),
+    ("crowded_tile", 20_000, 256, 256, 12, dict(crowd=10_000)),
+    ("isotropic", 50_000, 1008, 756, 12, dict(per_axis=False)),
+    ("full_res_llff", 2**18, 4032, 3024, 12, dict(culled=0.5)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,W,H,ppg,kw", BIN_CASES, ids=[c[0] for c in BIN_CASES])
+def test_binning_kernels_equal_the_plain_binning(cuda_device, name, n, W, H, ppg, kw):
+    """Every output of csrc/binning.cu's binning equals bin_gaussians_torch's
+    on the card: the pair arrays on the sorted slots, the rest whole; the
+    launches are counted."""
+    mean2d, ext, depth = binning_inputs(n + len(name), n, W, H, cuda_device, **kw)
+    cap = ppg * n
+    T = tile_grid(W, H, TS)[0] * tile_grid(W, H, TS)[1]
+    before = tracing.launches()
+    got = bin_gaussians(mean2d, ext, depth, W, H, TS, cap)
+    torch.cuda.synchronize()
+    after = tracing.launches()
+    want = bin_gaussians_torch(mean2d, ext, depth, W, H, TS, cap)
+    assert {k: after[k] - before[k] for k in bin_launches(T)} == bin_launches(T)
+    E = int(want.bin_slots)
+    for f in ("order", "tile_start", "tile_count", "num_pairs", "rank_offsets", "rank_of",
+              "bin_slots"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("pair_gauss", "pair_tile", "sorted_pos"):
+        assert torch.equal(getattr(got, f)[:E], getattr(want, f)[:E]), f
+    wanted = int(want.num_pairs)
+    if name == "overflow":
+        assert wanted > 4 * cap and E == cap
+    elif name == "all_culled":
+        assert wanted == E == 0 and not want.tile_count.any()
+    elif name == "crowded_tile":
+        assert int(want.tile_count.max()) > 4096  # more than one block of the sort
+    elif name == "full_res_llff":
+        assert T == 47_628 and E > 0
+    else:
+        assert 0 < E == wanted < cap
+
+
+@pytest.mark.cuda
+def test_binning_kernels_on_a_band(cuda_device):
+    """The band mode's input: centres shifted up by the band's first tile
+    row, the image `tile_rows` tile rows high."""
+    W, full_h, start, rows = 1008, 756, 20, 8
+    mean2d, ext, depth = binning_inputs(11, 50_000, W, full_h, cuda_device)
+    mean2d = mean2d - torch.tensor([0.0, start * TS], device=cuda_device)
+    got = bin_gaussians(mean2d, ext, depth, W, rows * TS, TS, 12 * 50_000)
+    want = bin_gaussians_torch(mean2d, ext, depth, W, rows * TS, TS, 12 * 50_000)
+    E = int(want.bin_slots)
+    assert 0 < E < int(bin_gaussians_torch(mean2d, ext, depth, W, full_h, TS, 1).num_pairs)
+    for f in ("order", "tile_start", "tile_count", "num_pairs", "rank_offsets", "rank_of"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("pair_gauss", "pair_tile", "sorted_pos"):
+        assert torch.equal(getattr(got, f)[:E], getattr(want, f)[:E]), f
+
+
+def spread_index(b, n):
+    """The plain gather's column per slot, with the slots past the emitted
+    pairs spread over the columns (their cotangents are 0; as one column
+    they would make its segment as long as the capacity's unused tail)."""
+    P = b.pair_gauss.shape[0]
+    spread = torch.arange(P, device=b.pair_gauss.device, dtype=torch.int32) % n
+    return torch.where(torch.arange(P, device=spread.device) < b.bin_slots, b.pair_gauss, spread)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,W,H,ppg,kw", [BIN_CASES[0], BIN_CASES[1], BIN_CASES[2]],
+                         ids=["llff", "blender", "overflow"])
+def test_gather_backward_equals_segment_sum_bit_for_bit(cuda_device, name, n, W, H, ppg, kw):
+    mean2d, ext, depth = binning_inputs(n + 7, n, W, H, cuda_device, **kw)
+    b = bin_gaussians(mean2d, ext, depth, W, H, TS, ppg * n)
+    plain = bin_gaussians_torch(mean2d, ext, depth, W, H, TS, ppg * n)
+    P, E = ppg * n, int(b.bin_slots)
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    d = torch.randn(10, P, generator=g, device=cuda_device) * 10.0 ** (
+        torch.rand(10, P, generator=g, device=cuda_device) * 12.0 - 6.0)
+    d[:, E:] = 0.0  # the blend's backward writes 0 outside the tiles' segments
+    before = tracing.launches()
+    got = gather_backward(d, b)
+    torch.cuda.synchronize()
+    after = tracing.launches()
+    assert [after[k] - before[k] for k in ("gather_transpose", "gather_backward")] == [1, 1]
+    rows = segment_sum_columns(d, spread_index(plain, n), n)[:, b.rank_of.long()]
+    want = (rows[0:2].T, rows[2:5].T, rows[5], rows[6:9].T, rows[9])
+    for k, x, y in zip(("mean2d", "conic", "opacity", "color", "depth"), got, want):
+        assert torch.equal(bits(x.contiguous()), bits(y.contiguous())), k
+
+
+def projected_set(seed, n, active, W, H, device):
+    """A projected set as the vertex stage leaves it: `active` visible rows
+    (centres over the image, conics of 1-8 px sigmas, extents of 3 sigma,
+    opacities, colours, depths), the rest culled (zeros, extent 0)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return lo + torch.rand(*shape, generator=g, device=device) * (hi - lo)
+
+    sig = u(active, 2, lo=1.0, hi=8.0)
+    rho = u(active, lo=-0.5, hi=0.5)
+    det = (sig[:, 0] * sig[:, 1]) ** 2 * (1 - rho * rho)
+    cov = torch.stack([sig[:, 1] ** 2, -rho * sig[:, 0] * sig[:, 1], sig[:, 0] ** 2], 1)
+    z = torch.zeros
+    fields = dict(mean2d=z(n, 2, device=device), depth=z(n, device=device),
+                  conic=z(n, 3, device=device), color=z(n, 3, device=device),
+                  opacity=z(n, device=device), radius=z(n, device=device),
+                  bin_extent=z(n, 2, device=device))
+    fields["mean2d"][:active] = u(active, 2) * torch.tensor([W, H], device=device)
+    fields["conic"][:active] = cov / det[:, None]
+    fields["opacity"][:active] = u(active, lo=0.05, hi=0.99)
+    fields["color"][:active] = u(active, 3)
+    fields["depth"][:active] = u(active, lo=1.0, hi=9.0)
+    fields["bin_extent"][:active] = 3.0 * sig
+    fields["radius"][:active] = torch.ceil(3.0 * sig.amax(1))
+    return ProjectedGaussians(visible=fields["radius"] > 0, **fields)
+
+
+def plain_rasterize(cam, proj, bg, raster):
+    """rasterize_projected's composition with the plain binning and gather
+    (the blend kernels as the card runs them)."""
+    from binocular3dgs_torch.ops.blend_cuda import blend_forward as blend
+
+    ts, (TW, TH) = raster.tile_size, tile_grid(cam.width, cam.height, raster.tile_size)
+    N = proj.mean2d.shape[0]
+    b = bin_gaussians_torch(proj.mean2d, proj.bin_extent, proj.depth, cam.width, cam.height, ts,
+                            raster.pairs_per_gaussian * N)
+    fields_d = torch.index_select(_build_fields(proj), 1, b.order)
+    records = _GatherRecords.apply(fields_d, spread_index(b, N))
+    out5, _ = blend(records, b.tile_start, b.tile_count, TW, TH, ts)
+    planes = _tiles_to_planes(out5, TW, TH, ts, cam.height, cam.width)
+    return planes[0:3] + planes[4][None] * bg[:, None, None], planes[3], 1.0 - planes[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,active,W,H", [(2**20, 285_523, 2016, 1512),
+                                          (2**18, 100_000, 400, 400)], ids=["llff", "blender"])
+def test_render_forward_backward_equal_the_plain_composition(cuda_device, n, active, W, H):
+    """A render's image, depth and alpha and the gradients of the projected
+    fields equal the plain binning and gather's bit for bit at both cells'
+    shapes; one render launches each binning kernel as counted and one
+    gather forward and backward."""
+    proj = projected_set(n + active, n, active, W, H, cuda_device)
+    cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, W, H, device=cuda_device)
+    raster, bg = RasterConfig(), torch.tensor([0.1, 0.2, 0.3], device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    weights = [torch.rand(shape, generator=g, device=cuda_device) - 0.5
+               for shape in ((3, H, W), (H, W), (H, W))]
+    names = ("mean2d", "conic", "opacity", "color", "depth")
+
+    def run(render):
+        leaves = {k: getattr(proj, k).clone().requires_grad_(True) for k in names}
+        out = render(cam, proj._replace(**leaves), bg, raster)
+        loss = sum((w * x).sum() for w, x in zip(weights, out))
+        return [x.detach() for x in out], torch.autograd.grad(loss, list(leaves.values()))
+
+    before = tracing.launches()
+    got_out, got_grad = run(lambda *a: (lambda o: (o.image, o.depth, o.alpha))(
+        rasterize_projected(*a)))
+    torch.cuda.synchronize()
+    after = tracing.launches()
+    want_out, want_grad = run(plain_rasterize)
+    T = tile_grid(W, H, TS)[0] * tile_grid(W, H, TS)[1]
+    assert {k: after[k] - before[k] for k in tracing.KERNELS} == {
+        **dict.fromkeys(tracing.KERNELS, 0), **bin_launches(T), "gather_forward": 1,
+        "gather_transpose": 1, "gather_backward": 1, "blend_forward": 1, "blend_backward": 1}
+    for k, x, y in zip(("image", "depth", "alpha"), got_out, want_out):
+        assert torch.equal(bits(x), bits(y)), k
+    for k, x, y in zip(names, got_grad, want_grad):
+        assert torch.equal(bits(x), bits(y)), k
+    assert float(got_out[2].mean()) > 0.1  # the set covers the image
+
+
+@pytest.mark.cuda
+def test_bin_slots_counter_and_binning_launches_recorded(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, cam = scene(3, 100, 64, 48, cuda_device)
+    xyz = model.params.xyz.clone().requires_grad_(True)
+    model = GaussianModel(dataclasses.replace(model.params, xyz=xyz), model.active, model.max_sh_degree,
+                          model.active_sh_degree)
+    t0 = __import__("time").time_ns()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        out = render_tiled(cam, model, [0.0, 0.0, 0.0], device=cuda_device)
+        torch.autograd.grad(out.image.sum(), [xyz])
+        torch.cuda.synchronize()
+    snap = tracing.snapshot(since_ns=t0)
+    value = {c["name"]: c["value"] for c in snap["counters"]}
+    assert value["render.bin_slots"] == min(value["render.pairs_wanted"],
+                                            value["render.pair_capacity"]) > 0
+    names = {c["name"] for c in snap["counters"]}
+    for k in (*bin_launches(12), "gather_forward", "gather_transpose", "gather_backward"):
+        if bin_launches(12).get(k, 1):
+            assert f"kernel.{k}.launches" in names, k
 
 
 def textured_pair(h, w, seed=0, shift=5):

@@ -154,6 +154,10 @@ def test_a_traced_block_records_the_ranges_and_counters():
                    if c["name"] == "step.visible" and c["iteration"] == it]
         assert len(wanted) == 2 and max(wanted) == int(metrics.num_pairs)
         assert caps == [metrics.pair_capacity] * 2 and visible == [int(metrics.n_visible)]
+        # the plain version sorts and gathers every slot of the capacity
+        slots = [c["value"] for c in counters
+                 if c["name"] == "render.bin_slots" and c["iteration"] == it]
+        assert slots == caps
     densified = {c["name"]: c["value"] for c in counters if c["name"].startswith("densify.")}
     assert set(densified) == {"densify.cloned", "densify.split", "densify.pruned"}
     assert all(isinstance(v, int) and v >= 0 for v in densified.values())
@@ -241,8 +245,7 @@ def test_launches_count_with_and_without_a_profiler(monkeypatch):
     with cpu_profile():
         tracing.launched("warp_forward")
         tracing.launched("blend_backward")
-    assert tracing.launches() == dict(blend_forward=0, blend_backward=1, warp_forward=2,
-                                      warp_backward=0, project_forward=0, project_backward=0,
-                                      ssim_forward=0, ssim_backward=0)
+    assert tracing.launches() == {**dict.fromkeys(tracing.KERNELS, 0), "blend_backward": 1,
+                                  "warp_forward": 2}
     assert [(c["name"], c["value"]) for c in since(t0)["counters"]] == [
         ("kernel.warp_forward.launches", 1), ("kernel.blend_backward.launches", 1)]
