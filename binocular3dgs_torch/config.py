@@ -4,7 +4,11 @@ Names and defaults mirror `binocular3dgs_tpu/config.py` (itself the
 reference flag system) so a `cfg_args.json` written by either package loads
 in the other. The JAX `backend` choice, the TPU-only raster knobs
 (`pallas_chunk`, `pallas_tile_group`, `grad_sort_bf16`, `max_pairs_per_tile`,
-`chunk`) are not carried: unknown keys are ignored on load. The port has one
+`chunk`) are not carried, nor are the values the port reads nowhere (the
+reference's `convert_SHs_python` and `compute_cov3D_python`,
+`opacity_reset_interval` and `random_background`, the compositing constants
+`alpha_min`, `transmittance_min` and `alpha_clamp`, which the kernels fix,
+and the `parallel` section): unknown keys are ignored on load. The port has one
 blend path, whose wrapper launches the CUDA kernel for CUDA tensors and its
 plain version for CPU ones. `TrainConfig.fused_steps` caps the trainer's
 spans of steps between host reads (train/loop.py), as in the JAX package.
@@ -30,8 +34,6 @@ class ModelConfig:
 
 @dataclass
 class PipelineConfig:
-    convert_SHs_python: bool = False
-    compute_cov3D_python: bool = False
     debug: bool = False
 
 
@@ -49,11 +51,9 @@ class OptimizationConfig:
     percent_dense: float = 0.01
     lambda_dssim: float = 0.2
     densification_interval: int = 100
-    opacity_reset_interval: int = 3000
     densify_from_iter: int = 500
     densify_until_iter: int = 15_000
     densify_grad_threshold: float = 0.0002
-    random_background: bool = False
 
 
 @dataclass
@@ -88,20 +88,8 @@ class RasterConfig:
     # Ceiling of the trainer's pair-capacity growth (train/loop.py doubles
     # pairs_per_gaussian up to it when the wanted pairs near capacity).
     max_pairs_per_gaussian: int = 96
-    # The compositing constants of the CUDA rasterizer contract (SURVEY.md
-    # §3.5). Recorded for cfg_args.json interchange; the blend kernels and
-    # their plain versions fix them, as the JAX package's do.
-    alpha_min: float = 1.0 / 255.0
-    transmittance_min: float = 1e-4
-    alpha_clamp: float = 0.99
     dilation: float = 0.3  # screen-space low-pass added to cov2d diagonal
     znear_cull: float = 0.2
-
-
-@dataclass
-class ParallelConfig:
-    view_axis: int = 1
-    tile_axis: int = 1
 
 
 @dataclass
@@ -117,7 +105,6 @@ _SECTIONS = {
     "opt": OptimizationConfig,
     "train": TrainConfig,
     "raster": RasterConfig,
-    "parallel": ParallelConfig,
     "capacity": GaussianCapacityConfig,
 }
 
@@ -129,7 +116,6 @@ class Config:
     opt: OptimizationConfig = field(default_factory=OptimizationConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     raster: RasterConfig = field(default_factory=RasterConfig)
-    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     capacity: GaussianCapacityConfig = field(default_factory=GaussianCapacityConfig)
 
     def to_json(self) -> str:

@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
+from .cuda_build import launch
 
 INT32_MAX = 2**31 - 1
 SORT_RADIX_BITS = 8  # csrc/binning.cu: one pass of the sort per 8 bits of the tile id
@@ -168,14 +168,7 @@ def bin_launches(num_tiles: int) -> dict:
                 bin_scan=passes, bin_scatter=passes, bin_ranges=1)
 
 
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def _bin_cuda(mean2d, radius, depth, width, height, tile_size, pair_capacity) -> TileBinning:
-    from .cuda_build import load_library
-
     TW, TH = tile_grid(width, height, tile_size)
     T, n, P = TW * TH, mean2d.shape[0], pair_capacity
     cols = 2 if radius.ndim == 2 else 1
@@ -190,36 +183,26 @@ def _bin_cuda(mean2d, radius, depth, width, height, tile_size, pair_capacity) ->
     passes = sort_passes(T)
     dev = mean2d.device
     i32 = dict(dtype=torch.int32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        key = torch.empty(n, dtype=torch.float32, device=dev)
-        _check(lib.b3dgs_bin_keys(radius.data_ptr(), cols, depth.data_ptr(), n, key.data_ptr(),
-                                  stream), "bin_keys")
-        order = torch.argsort(key, stable=True)
-        order32, rank_of = torch.empty(n, **i32), torch.empty(n, **i32)
-        rect = torch.empty(n, 4, **i32)
-        counts = torch.empty(n + 1, dtype=torch.int64, device=dev)
-        _check(lib.b3dgs_bin_count(order.data_ptr(), mean2d.data_ptr(), radius.data_ptr(), cols,
-                                   n, tile_size, TW, TH, order32.data_ptr(), rank_of.data_ptr(),
-                                   rect.data_ptr(), counts.data_ptr(), stream), "bin_count")
-        offsets = torch.cumsum(counts, 0)
-        pair = [torch.empty(P, **i32) for _ in range(3 + 2 * min(passes, 3))]
-        pair_tile, pair_gauss, sorted_pos, tile_e, rank_e, *ping_pong = pair
-        ptr = [x.data_ptr() for x in ping_pong] + [None] * (4 - len(ping_pong))
-        hist = torch.empty((-(-P // SORT_TILE) + 1) * (1 << SORT_RADIX_BITS), **i32)
-        tile_start, tile_count = torch.empty(T, **i32), torch.empty(T, **i32)
-        rank_offsets = torch.empty(n + 1, **i32)
-        num_pairs, bin_slots = torch.empty((), **i32), torch.empty((), **i32)
-        _check(lib.b3dgs_bin_sort(
-            offsets.data_ptr(), rect.data_ptr(), n, P, TW, T, passes, tile_e.data_ptr(),
-            rank_e.data_ptr(), *ptr, hist.data_ptr(), pair_tile.data_ptr(),
-            pair_gauss.data_ptr(), sorted_pos.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), rank_offsets.data_ptr(), num_pairs.data_ptr(),
-            bin_slots.data_ptr(), stream), "bin_sort")
-    for name, k in bin_launches(T).items():
-        for _ in range(k):
-            tracing.launched(name)
+    key = torch.empty(n, dtype=torch.float32, device=dev)
+    launch("b3dgs_bin_keys", dev, radius, cols, depth, n, key)
+    order = torch.argsort(key, stable=True)
+    order32, rank_of = torch.empty(n, **i32), torch.empty(n, **i32)
+    rect = torch.empty(n, 4, **i32)
+    counts = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    launch("b3dgs_bin_count", dev, order, mean2d, radius, cols, n, tile_size, TW, TH, order32,
+           rank_of, rect, counts)
+    offsets = torch.cumsum(counts, 0)
+    pair = [torch.empty(P, **i32) for _ in range(3 + 2 * min(passes, 3))]
+    pair_tile, pair_gauss, sorted_pos, tile_e, rank_e, *ping_pong = pair
+    ping_pong += [None] * (4 - len(ping_pong))  # the sort's key and value buffers a and b
+    hist = torch.empty((-(-P // SORT_TILE) + 1) * (1 << SORT_RADIX_BITS), **i32)
+    tile_start, tile_count = torch.empty(T, **i32), torch.empty(T, **i32)
+    rank_offsets = torch.empty(n + 1, **i32)
+    num_pairs, bin_slots = torch.empty((), **i32), torch.empty((), **i32)
+    sort_launches = {k: v for k, v in bin_launches(T).items() if k not in ("bin_keys", "bin_count")}
+    launch("b3dgs_bin_sort", dev, offsets, rect, n, P, TW, T, passes, tile_e, rank_e, *ping_pong,
+           hist, pair_tile, pair_gauss, sorted_pos, tile_start, tile_count, rank_offsets,
+           num_pairs, bin_slots, launches=sort_launches)
     return TileBinning(pair_gauss=pair_gauss, pair_tile=pair_tile, tile_start=tile_start,
                        tile_count=tile_count, num_pairs=num_pairs, order=order32,
                        rank_offsets=rank_offsets, sorted_pos=sorted_pos, bin_slots=bin_slots,

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import tracing
+from .cuda_build import launch
 
 ALPHA_MIN = 1.0 / 255.0
 T_MIN = 1e-4
@@ -275,48 +276,27 @@ def _check_kernel_inputs(name, ts, **tensors):
 
 
 def _launch(records, tile_start, tile_count, TW, TH, ts):
-    from .cuda_build import load_library
-
     _check_kernel_inputs("blend_forward", ts, records=records, tile_start=tile_start,
                          tile_count=tile_count)
     T, S = TW * TH, ts * ts
-    lib = load_library()
     out5 = torch.empty(5, T, S, dtype=torch.float32, device=records.device)
     n_contrib = torch.empty(T, S, dtype=torch.int32, device=records.device)
-    with torch.cuda.device(records.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.b3dgs_blend_forward(
-            records.data_ptr(), records.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-            TW, T, out5.data_ptr(), n_contrib.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"blend_forward kernel launch failed: cudaError {err}")
-    tracing.launched("blend_forward")
+    launch("b3dgs_blend_forward", records.device, records, records.shape[1], tile_start,
+           tile_count, TW, T, out5, n_contrib)
     return out5, n_contrib
 
 
 def _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts):
-    from .cuda_build import load_library
-
     d_out5 = d_out5.contiguous()
     _check_kernel_inputs("blend_backward", ts, records=records, tile_start=tile_start,
                          tile_count=tile_count, out5=out5, n_contrib=n_contrib)
     T = TW * TH
-    lib = load_library()
-    # zeros: slots outside every walked segment (binning's sentinel slots
-    # included, whose cotangents the pair gather adds into depth rank 0)
-    # must stay 0; the kernel writes only walked pairs
+    # zeros: the kernel writes only the pairs it walks, each tile's pairs
+    # below its largest n_contrib; the rest of the tile's segment must read
+    # 0 in the gather backward, which sums every sorted slot below bin_slots
     d_records = torch.zeros_like(records)
-    with torch.cuda.device(records.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.b3dgs_blend_backward(
-            records.data_ptr(), records.shape[1], tile_start.data_ptr(), tile_count.data_ptr(),
-            out5.data_ptr(), n_contrib.data_ptr(), d_out5.data_ptr(), TW, T,
-            d_records.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"blend_backward kernel launch failed: cudaError {err}")
-    tracing.launched("blend_backward")
+    launch("b3dgs_blend_backward", records.device, records, records.shape[1], tile_start,
+           tile_count, out5, n_contrib, d_out5, TW, T, d_records)
     return d_records
 
 

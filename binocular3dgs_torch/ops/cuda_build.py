@@ -9,6 +9,11 @@ flags and `nvcc --version`: a library built from other sources, under other
 flags or by another compiler is never reused (the flags decide the kernels'
 rounding, see NVCC_FLAGS). No build happens at import: the first kernel
 launch calls `load_library()`.
+
+`launch` is how Python calls a kernel: it passes the device's stream,
+checks the returned cudaError and counts the launch. The C signatures it
+calls through are read from the `extern "C"` prototypes in csrc/*.cu
+(`signatures`), so a kernel's interface is written once, in its source.
 """
 
 from __future__ import annotations
@@ -16,10 +21,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -33,6 +43,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
+
+_PROTOTYPE = re.compile(r'extern\s+"C"\s+int\s+(b3dgs_\w+)\s*\(([^)]*)\)')
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -95,31 +108,60 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def signatures(csrc: Path = CSRC) -> dict:
+    """Each entry point's ctypes argument types, read from its `extern "C"
+    int b3dgs_*(...)` prototype in `csrc`/*.cu: a pointer is c_void_p,
+    `int`, `long long` and `float` are themselves, any other type is an
+    error. The last parameter must be `void* stream`, which `launch`
+    passes."""
+    out = {}
+    for src in sorted(csrc.glob("*.cu")):
+        for name, params in _PROTOTYPE.findall(src.read_text()):
+            params = [" ".join(p.split()) for p in params.split(",")]
+            if name in out or not re.fullmatch(r"void ?\* ?stream", params[-1]):
+                raise ValueError(f"{src.name}: {name} is declared twice or does not end "
+                                 f"in void* stream")
+            argtypes = []
+            for p in params:
+                *words, _ = p.removeprefix("const ").split()
+                ctype = ctypes.c_void_p if "*" in p else _C_TYPES.get(" ".join(words))
+                if ctype is None:
+                    raise ValueError(f"{src.name}: {name} takes {p!r}, which ctypes is not "
+                                     f"told how to pass")
+                argtypes.append(ctype)
+            out[name] = argtypes
+    return out
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures set."""
+    """The kernel library, built at first use, each entry point's C
+    signature set from its prototype (`signatures`)."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            signatures = {
-                "b3dgs_blend_forward": [P, LL, P, P, I, I, P, P, P],
-                "b3dgs_blend_backward": [P, LL, P, P, P, P, P, I, I, P, P],
-                "b3dgs_warp_forward": [P, P, I, I, I, P, P, P],
-                "b3dgs_warp_backward": [P, P, I, I, I, P, P],
-                "b3dgs_project_forward": [P] * 13 + [LL, I, I, I, I, F, F] + [P] * 9,
-                "b3dgs_project_backward": [P] * 12 + [LL, I, I, I, I, F, F] + [P] * 13,
-                "b3dgs_ssim_forward": [P, P, I, I, I, P, I, P, LL, P, P, P, P, P],
-                "b3dgs_ssim_backward": [P] * 6 + [I, I, I, P, I, P, P],
-                "b3dgs_bin_keys": [P, I, P, LL, P, P],
-                "b3dgs_bin_count": [P, P, P, I, LL, I, I, I, P, P, P, P, P],
-                "b3dgs_bin_sort": [P, P, LL, LL, I, I, I] + [P] * 16,
-                "b3dgs_gather_forward": [P] * 8 + [LL, P, P],
-                "b3dgs_gather_backward": [P, LL, P, P, P, P, LL] + [P] * 7,
-            }
-            for name, argtypes in signatures.items():
+            for name, argtypes in signatures().items():
                 fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = I
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
             _lib = lib
         return _lib
+
+
+def launch(symbol: str, device, *args, launches: dict | None = None) -> None:
+    """Call the entry point `symbol` on `device` with `args` (a tensor
+    passes its data pointer) and that device's current stream; raise on a
+    non-zero cudaError. Its kernels count into `tracing.launched`:
+    `launches` ({name: count}) for an entry point that runs several, else
+    one launch of `symbol` less its `b3dgs_` prefix."""
+    fn = getattr(load_library(), symbol)
+    if len(args) + 1 != len(fn.argtypes):  # ctypes passes extra arguments silently
+        raise TypeError(f"{symbol} takes {len(fn.argtypes) - 1} arguments and the stream, "
+                        f"got {len(args)}")
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+    for name, n in (launches or {symbol.removeprefix("b3dgs_"): 1}).items():
+        for _ in range(n):
+            tracing.launched(name)

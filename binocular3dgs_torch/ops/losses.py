@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import tracing
+from .cuda_build import launch
 
 SSIM_WINDOW = 11
 SSIM_SIGMA = 1.5
@@ -184,22 +185,13 @@ def ssim_forward(img1, img2, size_average: bool = True, maps: bool = False):
 
 def _forward(x, y, size_average, maps):
     """`ssim_forward` on images that `_kernel_images` gave."""
-    from .cuda_build import load_library
-
     B, C, H, W = x.shape
     tiles = B * C * -(-H // SSIM_TILE[0]) * -(-W // SSIM_TILE[1])
     partials = x.new_empty(tiles)
     mean = x.new_empty(() if size_average else (B,))
     out = tuple(torch.empty_like(x) for _ in range(3)) if maps else None
-    with torch.cuda.device(x.device):
-        err = load_library().b3dgs_ssim_forward(
-            x.data_ptr(), y.data_ptr(), B * C, H, W, _window_host(x.device),
-            1 if size_average else B, partials.data_ptr(), tiles, mean.data_ptr(),
-            *((m.data_ptr() for m in out) if maps else (None, None, None)),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssim_forward kernel launch failed: cudaError {err}")
-    tracing.launched("ssim_forward")
+    launch("b3dgs_ssim_forward", x.device, x, y, B * C, H, W, _window_host(x.device),
+           1 if size_average else B, partials, tiles, mean, *(out or (None, None, None)))
     tracing.count("loss.ssim_elems", B * C * H * W)
     return mean, out
 
@@ -217,19 +209,11 @@ def ssim_backward(img1, img2, maps, grad, size_average: bool = True):
 def _backward(x, y, maps, grad, groups):
     """`ssim_backward` on images and maps that `_kernel_images` gave, and
     the upstream gradient of each of `groups` means."""
-    from .cuda_build import load_library
-
     B, C, H, W = x.shape
     grad = grad.to(torch.float32).contiguous()
     dx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = load_library().b3dgs_ssim_backward(
-            x.data_ptr(), y.data_ptr(), *(m.data_ptr() for m in maps), grad.data_ptr(), B * C,
-            H, W, _window_host(x.device), groups, dx.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssim_backward kernel launch failed: cudaError {err}")
-    tracing.launched("ssim_backward")
+    launch("b3dgs_ssim_backward", x.device, x, y, *maps, grad, B * C, H, W,
+           _window_host(x.device), groups, dx)
     return dx
 
 

@@ -43,6 +43,7 @@ from ..config import RasterConfig
 from ..core.camera import Camera
 from ..core.sh import C0, C1, C2, C3, eval_sh, num_sh_coeffs
 from ..models.gaussians import GaussianModel
+from .cuda_build import launch
 
 
 class ProjectedGaussians(NamedTuple):
@@ -266,8 +267,6 @@ def project_forward(xyz, f_dc, f_rest, opacity, scaling, rotation, active, camer
     """The forward kernel on raw leaves: `project_gaussians` of
     exp(scaling), sigmoid(opacity) and the concatenated features, every
     field of `ProjectedGaussians` in one launch. CUDA tensors only."""
-    from .cuda_build import load_library
-
     leaves, active, cam, k_rest = _kernel_inputs(
         "project_forward", (xyz, f_dc, f_rest, opacity, scaling, rotation), active, camera,
         sh_degree)
@@ -285,16 +284,8 @@ def project_forward(xyz, f_dc, f_rest, opacity, scaling, rotation, active, camer
         opacity=new((n,)), radius=new((n,)),
         visible=torch.empty(n, dtype=torch.bool, device=leaves[0].device),
         bin_extent=new((n, 2)))
-    lib = load_library()
-    with torch.cuda.device(leaves[0].device):
-        err = lib.b3dgs_project_forward(
-            *(x.data_ptr() for x in leaves), active.data_ptr(),
-            None if carrier is None else carrier.data_ptr(), *(t.data_ptr() for t in cam),
-            n, k_rest, sh_degree, camera.width, camera.height, dilation, znear_cull,
-            *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"project_forward kernel launch failed: cudaError {err}")
-    tracing.launched("project_forward")
+    launch("b3dgs_project_forward", leaves[0].device, *leaves, active, carrier, *cam, n, k_rest,
+           sh_degree, camera.width, camera.height, dilation, znear_cull, *out)
     return out
 
 
@@ -305,8 +296,6 @@ def project_backward(xyz, f_dc, f_rest, opacity, scaling, rotation, active, came
     scaling, rotation, carrier) of the raw leaves and of the carrier (None
     without `with_carrier`) from the cotangents of mean2d, depth, conic,
     color and opacity (each None for zeros). CUDA tensors only."""
-    from .cuda_build import load_library
-
     leaves, active, cam, k_rest = _kernel_inputs(
         "project_backward", (xyz, f_dc, f_rest, opacity, scaling, rotation), active, camera,
         sh_degree)
@@ -322,17 +311,9 @@ def project_backward(xyz, f_dc, f_rest, opacity, scaling, rotation, active, came
         cots.append(None if g is None else g.contiguous())
     grads = [torch.empty_like(x) for x in leaves]
     d_carrier = leaves[0].new_empty((n, 2)) if with_carrier else None
-    lib = load_library()
-    with torch.cuda.device(leaves[0].device):
-        err = lib.b3dgs_project_backward(
-            *(x.data_ptr() for x in leaves), active.data_ptr(), *(t.data_ptr() for t in cam),
-            n, k_rest, sh_degree, camera.width, camera.height, dilation, znear_cull,
-            *(None if g is None else g.data_ptr() for g in cots),
-            *(g.data_ptr() for g in grads), None if d_carrier is None else d_carrier.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"project_backward kernel launch failed: cudaError {err}")
-    tracing.launched("project_backward")
+    launch("b3dgs_project_backward", leaves[0].device, *leaves, active, *cam, n, k_rest,
+           sh_degree, camera.width, camera.height, dilation, znear_cull, *cots, *grads,
+           d_carrier)
     return (*grads, d_carrier)
 
 

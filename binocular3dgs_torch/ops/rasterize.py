@@ -60,6 +60,7 @@ from ..core.camera import Camera
 from ..models.gaussians import GaussianModel
 from .binning import TileBinning, bin_gaussians, tile_grid
 from .blend_cuda import blend_forward
+from .cuda_build import launch
 from .project import ProjectedGaussians, project_for_render
 from .rasterize_reference import RenderOutput
 
@@ -124,8 +125,6 @@ def gather_backward(d_records: torch.Tensor, binning: TileBinning) -> tuple:
     `sorted_pos`, summed in ascending slot order from 0 (the sums of
     `segment_sum_columns` over the plain version's gather, bit for bit).
     CUDA tensors only."""
-    from .cuda_build import load_library
-
     d_records = d_records.contiguous()
     P, n = d_records.shape[1], binning.order.shape[0]
     if d_records.shape[0] != 10 or P != binning.sorted_pos.shape[0]:
@@ -134,16 +133,9 @@ def gather_backward(d_records: torch.Tensor, binning: TileBinning) -> tuple:
     new = d_records.new_empty
     grads = (new((n, 2)), new((n, 3)), new((n,)), new((n, 3)), new((n,)))
     by_pair = new((P, 12))  # a 48-byte record a sorted pair, the first bin_slots written
-    with torch.cuda.device(d_records.device):
-        err = load_library().b3dgs_gather_backward(
-            d_records.data_ptr(), P, binning.sorted_pos.data_ptr(), binning.bin_slots.data_ptr(),
-            binning.rank_offsets.data_ptr(), binning.rank_of.data_ptr(), n, by_pair.data_ptr(),
-            *(g.data_ptr() for g in grads),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gather_backward kernel launch failed: cudaError {err}")
-    tracing.launched("gather_transpose")
-    tracing.launched("gather_backward")
+    launch("b3dgs_gather_backward", d_records.device, d_records, P, binning.sorted_pos,
+           binning.bin_slots, binning.rank_offsets, binning.rank_of, n, by_pair, *grads,
+           launches={"gather_transpose": 1, "gather_backward": 1})
     return grads
 
 
@@ -154,8 +146,6 @@ class _GatherPairs(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, color, depth, binning):
-        from .cuda_build import load_library
-
         P, n = binning.pair_gauss.shape[0], binning.order.shape[0]
         fields = [x.contiguous() for x in (mean2d, conic, opacity, color, depth)]
         for x, shape in zip(fields, ((n, 2), (n, 3), (n,), (n, 3), (n,))):
@@ -163,14 +153,8 @@ class _GatherPairs(torch.autograd.Function):
                 raise ValueError(f"gather_records: a field must be {shape} float32 on a card, "
                                  f"got {tuple(x.shape)} {x.dtype} on {x.device}")
         records = fields[0].new_empty((10, P))
-        with torch.cuda.device(records.device):
-            err = load_library().b3dgs_gather_forward(
-                *(x.data_ptr() for x in fields), binning.order.data_ptr(),
-                binning.pair_gauss.data_ptr(), binning.bin_slots.data_ptr(), P,
-                records.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"gather_forward kernel launch failed: cudaError {err}")
-        tracing.launched("gather_forward")
+        launch("b3dgs_gather_forward", records.device, *fields, binning.order,
+               binning.pair_gauss, binning.bin_slots, P, records)
         ctx.binning = binning
         return records
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import tracing
+from .cuda_build import launch
 
 
 def _taps(disparity: torch.Tensor, W: int):
@@ -136,19 +137,10 @@ def warp_forward(image: torch.Tensor, disparity: torch.Tensor):
         return warp_forward_torch(image, disparity)
     if not image.is_cuda:
         raise ValueError(f"warp_forward: unsupported device {image.device}")
-    from .cuda_build import load_library
-
     image, disparity = image.contiguous(), disparity.contiguous()
-    lib = load_library()
     out = torch.empty_like(image)
     diff = torch.empty_like(image)
-    with torch.cuda.device(image.device):
-        err = lib.b3dgs_warp_forward(image.data_ptr(), disparity.data_ptr(), C, H, W,
-                                     out.data_ptr(), diff.data_ptr(),
-                                     torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"warp_forward kernel launch failed: cudaError {err}")
-    tracing.launched("warp_forward")
+    launch("b3dgs_warp_forward", image.device, image, disparity, C, H, W, out, diff)
     return out, diff
 
 
@@ -163,17 +155,9 @@ def warp_backward(disparity: torch.Tensor, d_out: torch.Tensor) -> torch.Tensor:
         return warp_backward_torch(disparity, d_out)
     if not d_out.is_cuda:
         raise ValueError(f"warp_backward: unsupported device {d_out.device}")
-    from .cuda_build import load_library
-
     disparity, d_out = disparity.contiguous(), d_out.contiguous()
-    lib = load_library()
     d_image = torch.empty_like(d_out)
-    with torch.cuda.device(d_out.device):
-        err = lib.b3dgs_warp_backward(disparity.data_ptr(), d_out.data_ptr(), C, H, W,
-                                      d_image.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"warp_backward kernel launch failed: cudaError {err}")
-    tracing.launched("warp_backward")
+    launch("b3dgs_warp_backward", d_out.device, disparity, d_out, C, H, W, d_image)
     return d_image
 
 

@@ -26,7 +26,7 @@ Each buffer holds the newest `CAPACITY` records, so a long profiled run
 does not grow it without limit; a reader picks its records by time.
 
 The kernels' launch totals (`launched`, `launches`) count whether or not
-the recorder is on, as the kernels' wrappers always have.
+the recorder is on; `ops/cuda_build.launch` counts every launch.
 """
 
 from __future__ import annotations
@@ -42,10 +42,6 @@ import torch
 from torch.autograd import profiler as _profiler
 
 CAPACITY = 1 << 18
-KERNELS = ("blend_forward", "blend_backward", "warp_forward", "warp_backward",
-           "project_forward", "project_backward", "ssim_forward", "ssim_backward",
-           "bin_keys", "bin_count", "bin_emit", "bin_histogram", "bin_scan", "bin_scatter",
-           "bin_ranges", "gather_forward", "gather_transpose", "gather_backward")
 
 # (id, name, thread, start_ns, end_ns, parent id, attrs), appended when a range ends
 _ranges: collections.deque = collections.deque(maxlen=CAPACITY)
@@ -53,7 +49,7 @@ _ranges: collections.deque = collections.deque(maxlen=CAPACITY)
 _counters: collections.deque = collections.deque(maxlen=CAPACITY)
 _ids = itertools.count()
 _local = threading.local()
-_launches = dict.fromkeys(KERNELS, 0)
+_launches: collections.Counter = collections.Counter()
 
 
 def enabled() -> bool:
@@ -120,16 +116,17 @@ def count(name: str, value) -> None:
 
 
 def launched(kernel: str) -> None:
-    """One launch of the hand-written kernel `kernel` (one of `KERNELS`),
-    counted into its total always and as `kernel.<kernel>.launches` while
-    the recorder is on."""
+    """One launch of the hand-written kernel `kernel`, counted into its
+    total always and as `kernel.<kernel>.launches` while the recorder is
+    on."""
     _launches[kernel] += 1
     count(f"kernel.{kernel}.launches", 1)
 
 
-def launches() -> dict:
-    """The launches of each kernel of `KERNELS` in this process so far."""
-    return dict(_launches)
+def launches() -> collections.Counter:
+    """The launches of each kernel in this process so far (0 for a kernel
+    never launched)."""
+    return collections.Counter(_launches)
 
 
 def _resolve(counters: list) -> None:

@@ -148,6 +148,7 @@ last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import shutil
@@ -159,33 +160,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM
-# bandwidth and FP32 rate outside the tensor cores. The 67 TFLOP/s counts a
-# fused multiply-add as two operations; the kernels build with --fmad=false,
-# so each multiply, add or compare is one instruction and the rate they can
-# reach is half of it.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
-# per pair-pixel evaluation of the blend: one expf (counted as one
-# instruction) and ~15 FP32 multiply/add/compare instructions. The bound
-# counts them for the pair-pixels the data needs evaluated: those that blend
-# (alpha > 0 before the pixel terminates, the terminating pair included).
-# A pair whose alpha is 0 at a pixel need not be evaluated there; the
-# kernels skip most of them by culling, so a count of every evaluation a
-# dense walk makes (printed as dense_bound_ms) is no bound for them.
-BLEND_INSTR_PER_EVAL = 16
-# bytes per valid pair read (10 float32 fields), per tile (start, count),
-# per pixel written (5 float32 planes + 1 int32)
-BLEND_BYTES_PER_PAIR, BLEND_BYTES_PER_TILE, BLEND_BYTES_PER_PIXEL = 40, 8, 24
-# blend backward, per pair-pixel that blended: its alpha (16, as the
-# forward's), ~45 FP32 instructions of cotangent algebra and the ~10
-# additions that sum its ten terms over the tile's pixels; the dense count
-# adds the alpha of every other pair below a pixel's n_contrib
-BWD_INSTR_PER_EVAL, BWD_INSTR_PER_HIT = 16, 55
-# bytes: 40 read + 40 written per walked pair, per pixel 28 read (T_final,
-# five cotangent planes, n_contrib), per tile 8
-BWD_BYTES_PER_PAIR, BWD_BYTES_PER_PIXEL = 80, 28
+# The card's peaks, kernel_bound and the blend kernels' work and constants
+# are benchmark/work.py's (imported where used: torch is imported in main).
 # warp: W1 reads the disparity and the image once and writes out and diff
 # (4 + 12 + 24 B per pixel); W2 reads the disparity and d_out and writes
 # d_image (4 + 12 + 12 B per pixel); a few FP32 operations per pixel
@@ -352,34 +328,6 @@ def arc_poses(n, span=0.08):
     return poses
 
 
-def forward_work(torch, records, tile_start, tile_count, n_contrib, TW, TH, ts, chunk=32):
-    """(pairs read, dense evaluations, hits, terminated pixels) of the blend
-    forward on this data. A dense walk evaluates each pixel's pairs up to
-    and including the one that terminates it (the first pair past its last
-    blended one with alpha > 0), or all of them; a tile needs its pairs read
-    up to its pixels' last such evaluation; the hits are the evaluations
-    whose alpha is > 0: the pairs a pixel blended and the terminating one."""
-    from binocular3dgs_torch.ops.blend_cuda import _splat, _tile_pixel_coords
-
-    px, py = _tile_pixel_coords(TW, TH, ts, records.device)
-    start, count = tile_start.long(), tile_count.long()
-    nc = n_contrib.long()
-    big = torch.iinfo(torch.int64).max
-    first_kill = torch.full_like(nc, big)
-    blended = 0
-    for c0 in range(0, int(count.max()), chunk):
-        k = c0 + torch.arange(chunk, device=records.device)
-        valid = k[None, :] < count[:, None]
-        rec = records[:6, torch.clamp(start[:, None] + k[None, :], max=records.shape[1] - 1)]
-        live = (_splat(rec, px, py)[3] > 0) & valid[:, None, :]
-        blended += int((live & (k < nc[..., None])).sum())
-        first_kill = torch.minimum(first_kill,
-                                   torch.where(live & (k >= nc[..., None]), k, big).amin(-1))
-    evals = torch.where(first_kill < big, first_kill + 1, count[:, None])
-    killed = int((first_kill < big).sum())
-    return int(evals.amax(1).sum()), int(evals.sum()), blended + killed, killed
-
-
 def phase_environment(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -470,6 +418,7 @@ def phase_kernel_parity(torch, model, cam, raster, tag="[4 parity]", grow=False)
     """B1 against its plain version at full width, its times and bounds.
     `grow` raises pairs_per_gaussian until nothing overflows (the overdraw
     shape); the plain version is then timed by its one parity call."""
+    from benchmark import work
     from binocular3dgs_torch.ops.blend_cuda import blend_forward, blend_forward_torch
 
     records, start, count, TW, TH, ts, b, cap = bin_records(torch, model, cam, raster, grow)
@@ -498,17 +447,18 @@ def phase_kernel_parity(torch, model, cam, raster, tag="[4 parity]", grow=False)
     ms, event_ms = kernel_times(torch, lambda: blend_forward(*args), "blend_forward_kernel")
     plain_ms = plain_once_ms if grow else median_ms(
         torch, lambda: blend_forward_torch(*args), warmup=1, iters=3)
-    read, evals, hits, killed = forward_work(torch, records, start, count, want_nc, TW, TH, ts)
+    read, evals, hits, killed = work.forward_work(records, start, count, want_nc, TW, TH, ts)
     culled_evals = cell_evaluations(torch, records, start, count, TW, ts)
-    bytes_ = (BLEND_BYTES_PER_PAIR * read + BLEND_BYTES_PER_TILE * T
-              + BLEND_BYTES_PER_PIXEL * T * ts * ts)
-    bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound(bytes_, BLEND_INSTR_PER_EVAL * hits)
-    dense_bound_ms = kernel_bound(bytes_, BLEND_INSTR_PER_EVAL * evals)[0]
+    bytes_ = (work.BLEND_BYTES_PER_PAIR * read + work.BLEND_BYTES_PER_TILE * T
+              + work.BLEND_BYTES_PER_PIXEL * T * ts * ts)
+    bound_ms, bound_by, bytes_ms, ops_ms = work.kernel_bound(
+        bytes_, work.BLEND_INSTR_PER_EVAL * hits)
+    dense_bound_ms = work.kernel_bound(bytes_, work.BLEND_INSTR_PER_EVAL * evals)[0]
     log(f"{tag} kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events around the "
         f"wrapper), plain {plain_ms:.3f} ms; {killed} of {T * ts * ts} pixels terminate; "
         f"bound: {read} pairs read, {bytes_} B -> {bytes_ms:.4f} ms, {hits} "
-        f"hits x {BLEND_INSTR_PER_EVAL} FP32 instructions at {FP32_INSTR_PER_S:.3g}/s -> "
-        f"{ops_ms:.4f} ms; dense bound ({evals} evaluations) {dense_bound_ms:.4f} ms; the cell "
+        f"hits x {work.BLEND_INSTR_PER_EVAL} FP32 instructions at {work.FP32_INSTR_PER_S:.3g}/s "
+        f"-> {ops_ms:.4f} ms; dense bound ({evals} evaluations) {dense_bound_ms:.4f} ms; the cell "
         f"cull leaves {culled_evals} of the {ts * ts * valid_pairs} "
         f"pair-pixel evaluations of a dense walk without early exit")
     check(ms >= bound_ms, f"blend_forward reads {ms} ms, below its bound {bound_ms} ms")
@@ -535,34 +485,8 @@ def phase_kernel_parity(torch, model, cam, raster, tag="[4 parity]", grow=False)
     return kernel, dict(args=args, out5=out5, n_contrib=nc, valid_pairs=valid_pairs)
 
 
-def kernel_bound(bytes_, instr):
-    """(bound ms, what bounds it, bytes ms, operations ms) from bytes moved
-    and FP32 instructions."""
-    bytes_ms, ops_ms = bytes_ / HBM_BYTES_PER_S * 1e3, instr / FP32_INSTR_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), \
-        bytes_ms, ops_ms
-
-
-def backward_work(torch, records, tile_start, tile_count, n_contrib, TW, TH, ts, chunk=32):
-    """(walked pairs, evaluations, hits) of the blend backward on this data:
-    each tile walks its pairs below its largest n_contrib; a dense walk
-    evaluates at each pixel the alpha of the pairs below its own n_contrib,
-    and a hit is one whose alpha is > 0 there (a pair it blended)."""
-    from binocular3dgs_torch.ops.blend_cuda import _splat, _tile_pixel_coords
-
-    px, py = _tile_pixel_coords(TW, TH, ts, records.device)
-    start, nc = tile_start.long(), n_contrib.long()
-    n_walk = torch.minimum(nc.amax(1), tile_count.long())
-    hits = 0
-    for c0 in range(0, int(n_walk.max()), chunk):
-        k = c0 + torch.arange(chunk, device=records.device)
-        idx = torch.clamp(start[:, None] + k[None, :], max=records.shape[1] - 1)
-        alpha = _splat(records[:6, idx], px, py)[3]
-        hits += int(((alpha > 0) & (k[None, None, :] < nc[..., None])).sum())
-    return int(n_walk.sum()), int(nc.sum()), hits
-
-
 def phase_backward_parity(torch, fwd, seed, tag="[7 backward]"):
+    from benchmark import work
     from binocular3dgs_torch.ops.blend_cuda import blend_backward, blend_backward_torch
 
     records, start, count, TW, TH, ts = fwd["args"]
@@ -588,17 +512,17 @@ def phase_backward_parity(torch, fwd, seed, tag="[7 backward]"):
 
     ms, event_ms = kernel_times(torch, lambda: blend_backward(*args), "blend_backward_kernel")
     plain_ms = median_ms(torch, lambda: blend_backward_torch(*args), warmup=1, iters=3)
-    walked, evals, hits = backward_work(torch, records, start, count, nc, TW, TH, ts)
+    walked, evals, hits = work.backward_work(records, start, count, nc, TW, TH, ts)
     T = TW * TH
-    bytes_ = BWD_BYTES_PER_PAIR * walked + BWD_BYTES_PER_PIXEL * T * ts * ts + 8 * T
-    bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound(
-        bytes_, (BWD_INSTR_PER_EVAL + BWD_INSTR_PER_HIT) * hits)
-    dense_bound_ms = kernel_bound(
-        bytes_, BWD_INSTR_PER_EVAL * evals + BWD_INSTR_PER_HIT * hits)[0]
+    bytes_ = (work.BWD_BYTES_PER_PAIR * walked + work.BWD_BYTES_PER_PIXEL * T * ts * ts
+              + work.BWD_BYTES_PER_TILE * T)
+    per_eval, per_hit = work.BWD_INSTR_PER_EVAL, work.BWD_INSTR_PER_HIT
+    bound_ms, bound_by, bytes_ms, ops_ms = work.kernel_bound(bytes_, (per_eval + per_hit) * hits)
+    dense_bound_ms = work.kernel_bound(bytes_, per_eval * evals + per_hit * hits)[0]
     log(f"{tag} kernel {ms:.4f} ms (profiler; {event_ms:.4f} ms CUDA events), plain "
         f"{plain_ms:.3f} ms; bound: {walked} walked pairs, {bytes_} B -> {bytes_ms:.4f} ms; "
-        f"{hits} hits x {BWD_INSTR_PER_EVAL + BWD_INSTR_PER_HIT} FP32 instructions -> "
-        f"{ops_ms:.4f} ms; dense bound ({evals} evaluations x {BWD_INSTR_PER_EVAL} more) "
+        f"{hits} hits x {per_eval + per_hit} FP32 instructions -> "
+        f"{ops_ms:.4f} ms; dense bound ({evals} evaluations x {per_eval} more) "
         f"{dense_bound_ms:.4f} ms")
     check(ms >= bound_ms, f"blend_backward reads {ms} ms, below its bound {bound_ms} ms")
     return dict(
@@ -626,6 +550,7 @@ def phase_warp_parity(torch, view0, seed, trans=0.2, tag="[8 warp]"):
     and the disparity of a binocular shift `trans` (disparity =
     focal_x * -trans / depth); W2 must equal its plain version bit for bit
     and repeat itself bit for bit. Times and bounds of both."""
+    from benchmark.work import kernel_bound
     from binocular3dgs_torch.ops import warp
 
     image, depth, cam = view0
@@ -739,6 +664,7 @@ def phase_vertex(torch, seed, device, tag="[22 vertex]"):
     project_backward_torch (1e-5); each kernel's device time with L2 flushed
     beside its byte bound, the plain version's time (CUDA events) and its
     device operations per call."""
+    from benchmark.work import kernel_bound
     from binocular3dgs_torch.models.gaussians import PARAM_NAMES
     from binocular3dgs_torch.ops.project import (
         ProjectedGaussians, project_backward, project_backward_torch, project_forward,
@@ -849,6 +775,7 @@ def phase_ssim(torch, seed, device, tag="[23 ssim]"):
     operations per call."""
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark.work import kernel_bound
     from binocular3dgs_torch.ops import losses
 
     def max_rel(got, want):
@@ -973,6 +900,7 @@ def phase_binning(torch, seed, device, tag="[24 binning]"):
     cells' rows and image sizes against the plain stages: every output bit
     for bit, device times with L2 flushed beside the bytes the stages must
     move, device operations, and one render's launch gate."""
+    from benchmark.work import kernel_bound
     from binocular3dgs_torch.config import RasterConfig
     from binocular3dgs_torch.ops.binning import (
         bin_gaussians, bin_gaussians_torch, bin_launches, tile_grid,
@@ -1009,10 +937,9 @@ def phase_binning(torch, seed, device, tag="[24 binning]"):
             seed + 25), device=device)
         grads = torch.autograd.grad(records, list(leaves.values()), cot, retain_graph=True)
         torch.cuda.synchronize()
-        launches = {k: v for k, v in launch_counts().items() if v}
-        want_launches = dict(bin_launches(TW * TH), gather_forward=1, gather_transpose=1,
-                             gather_backward=1)
-        want_launches = {k: v for k, v in want_launches.items() if v}
+        launches = launch_counts()
+        want_launches = collections.Counter(bin_launches(TW * TH), gather_forward=1,
+                                            gather_transpose=1, gather_backward=1)
         check(launches == want_launches, f"{tag} {cell} one render's launches {launches}, "
                                          f"expected {want_launches}")
 
@@ -1313,7 +1240,7 @@ def phase_entry_point(torch, model, scene, work):
     return dict(psnr=res["PSNR"], ssim=res["SSIM"], render_s=t_render, metrics_s=t_metrics)
 
 
-_LAUNCH_BASE = {}
+_LAUNCH_BASE = collections.Counter()
 
 
 def render_launches(renders, backward, width, height, tile_size=16):
@@ -1328,13 +1255,15 @@ def render_launches(renders, backward, width, height, tile_size=16):
 
 def launch_counts(reset=False):
     """The kernels' launches (binocular3dgs_torch.tracing) since the last
-    call with `reset`."""
+    call with `reset`: a Counter, which reads 0 for a kernel not launched
+    and equals another Counter whatever zeros either holds."""
     from binocular3dgs_torch import tracing
 
     now = tracing.launches()
     if reset:
+        _LAUNCH_BASE.clear()
         _LAUNCH_BASE.update(now)
-    return {name: n - _LAUNCH_BASE.get(name, 0) for name, n in now.items()}
+    return now - _LAUNCH_BASE
 
 
 def train_setup(torch, seed, device, n=N_GAUSS, width=W, height=H):
@@ -1439,11 +1368,11 @@ def phase_train(torch, device, seed):
     counts = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
-    expected = dict(blend_forward=2 * TRAIN_STEPS, blend_backward=2 * TRAIN_STEPS,
-                    warp_forward=TRAIN_STEPS, warp_backward=TRAIN_STEPS,
-                    project_forward=2 * TRAIN_STEPS, project_backward=2 * TRAIN_STEPS,
-                    ssim_forward=TRAIN_STEPS, ssim_backward=TRAIN_STEPS,
-                    **render_launches(2 * TRAIN_STEPS, 2 * TRAIN_STEPS, W, H))
+    expected = collections.Counter(
+        blend_forward=2 * TRAIN_STEPS, blend_backward=2 * TRAIN_STEPS, warp_forward=TRAIN_STEPS,
+        warp_backward=TRAIN_STEPS, project_forward=2 * TRAIN_STEPS,
+        project_backward=2 * TRAIN_STEPS, ssim_forward=TRAIN_STEPS, ssim_backward=TRAIN_STEPS,
+        **render_launches(2 * TRAIN_STEPS, 2 * TRAIN_STEPS, W, H))
     step_ms = [s.elapsed_time(e) for s, e in events]
     losses = [float(m.loss + m.disparity_loss) for m in metrics]
     log(f"[9 train] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-ups: launches {counts} "
@@ -1677,10 +1606,11 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
         train_log = json.load(f)
     steps = 30
     cam0 = probe.trainer.scene.train_views[0].camera
-    expected = dict(blend_forward=2 * steps, blend_backward=2 * steps, warp_forward=steps,
-                    warp_backward=steps, project_forward=2 * steps, project_backward=2 * steps,
-                    ssim_forward=steps, ssim_backward=steps,
-                    **render_launches(2 * steps, 2 * steps, cam0.width, cam0.height))
+    expected = collections.Counter(
+        blend_forward=2 * steps, blend_backward=2 * steps, warp_forward=steps,
+        warp_backward=steps, project_forward=2 * steps, project_backward=2 * steps,
+        ssim_forward=steps, ssim_backward=steps,
+        **render_launches(2 * steps, 2 * steps, cam0.width, cam0.height))
     resumed = f"Resumed from {ckpt} at iteration 30" in text.getvalue()
     grown = [line for line in text.getvalue().splitlines() if "pair capacity grown" in line]
     ppg = probe.trainer.raster.pairs_per_gaussian
@@ -2873,9 +2803,9 @@ def sharded_rank_checks(torch, device, seed):
     loss_rel = abs(loss2 - loss1) / abs(loss1)
     TW, TH = tile_grid(W, H, cfg.raster.tile_size)
     band_h = -(-TH // world) * cfg.raster.tile_size
-    expected = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1,
-                    project_forward=2, project_backward=2, ssim_forward=1, ssim_backward=1,
-                    **render_launches(2, 2, W, band_h))
+    expected = collections.Counter(
+        blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1, project_forward=2,
+        project_backward=2, ssim_forward=1, ssim_backward=1, **render_launches(2, 2, W, band_h))
     res["step"] = dict(loss_sharded=loss2, loss_single=loss1, loss_rel=loss_rel, rel_norm=rel,
                        launches=launches)
     log(f"{tag} one sharded step vs the single step: loss {loss2:.7f} vs {loss1:.7f} (rel "
