@@ -4,7 +4,8 @@ Counterpart of `binocular3dgs_tpu/core/camera.py`: the matrices are built
 on the host in float64 numpy and stored as float32 tensors on a device,
 with the row-vector convention (``p_view = [p, 1] @ world_view``). Image
 width/height and the clip planes are plain Python numbers. `shift_camera`
-works on the stored float32 tensors, as the JAX version does under jit.
+works on the stored float32 tensors, as the JAX version does under jit,
+with the shift a number or a tensor on the device.
 """
 
 from __future__ import annotations
@@ -98,12 +99,13 @@ def shift_camera(camera: Camera, trans_dist) -> Camera:
     `scene/__init__.py:96-115` + `getWorld2View2`): the centre moves by
     R_c2w @ [d, 0, 0] in world space, the orientation is unchanged, and
     `world_view`, `full_proj` and `cam_center` are rebuilt in float32 on the
-    camera's device, in the order of `binocular3dgs_tpu/core/camera.py`."""
-    dev = camera.world_view.device
-    trans_dist = torch.as_tensor(trans_dist, dtype=torch.float32, device=dev)
+    camera's device, in the order of `binocular3dgs_tpu/core/camera.py`.
+    `trans_dist` is a number or a 0-d float32 tensor on the camera's device
+    (a CUDA graph's input); either way the shift enters as a float32 factor
+    and nothing is copied from the host."""
     M = camera.world_view.T  # column-convention W2C
     Rw2c = M[:3, :3]
-    x_axis_world = Rw2c.T @ torch.tensor([1.0, 0.0, 0.0], device=dev)
+    x_axis_world = Rw2c[0]  # R_c2w @ [1, 0, 0]: the first row of R_w2c
     new_center = camera.cam_center + trans_dist * x_axis_world
     new_M = M.clone()
     new_M[:3, 3] = -Rw2c @ new_center

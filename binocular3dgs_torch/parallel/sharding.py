@@ -280,7 +280,7 @@ def sharded_adam(mesh: Mesh):
     ranks' rows are all-gathered into the replicated parameters (one
     collective for the six fields)."""
 
-    def update(params, grads, m, v, step, lrs, active):
+    def update(params, grads, m, v, step, lrs, active, corrections=None):
         lo, n = _moment_rows(mesh, params.xyz.shape[0])
         if m.xyz.shape[0] != n:
             raise ValueError(f"sharded Adam moments hold {m.xyz.shape[0]} rows, expected {n}")
@@ -288,7 +288,8 @@ def sharded_adam(mesh: Mesh):
         def rows(tree):
             return GaussianParams(**{k: getattr(tree, k)[lo:lo + n] for k in PARAM_NAMES})
 
-        t = adam_update(rows(params), rows(grads), m, v, step, lrs, active[lo:lo + n])
+        t = adam_update(rows(params), rows(grads), m, v, step, lrs, active[lo:lo + n],
+                        corrections)
         fields = [getattr(params, k) for k in PARAM_NAMES]
         widths = [f[0].numel() for f in fields]
         mine = torch.cat([f[lo:lo + n].reshape(n, -1) for f in fields], dim=1)

@@ -2,8 +2,9 @@
 
 A range is a named interval of host time (`region`), a counter a named
 value at an instant (`count`). Names give the layer first: `trainer.*`
-(train/loop.py, densification), `step.*` (train/step.py, the warp's and
-SSIM's backward), `render.*` (ops/rasterize.py, the blend's and the vertex
+(train/loop.py, densification), `step.*` (train/step.py with its CUDA
+graphs' `step.replay`, `step.graph_replays` and `step.graph_captures`, the
+warp's and SSIM's backward), `render.*` (ops/rasterize.py, the blend's and the vertex
 stage's backward), `loss.*` (ops/losses.py: the values SSIM's kernel
 blurs) and `kernel.*` (the hand-written kernels' launches).
 
@@ -27,6 +28,15 @@ does not grow it without limit; a reader picks its records by time.
 
 The kernels' launch totals (`launched`, `launches`) count whether or not
 the recorder is on; `ops/cuda_build.launch` counts every launch.
+
+A CUDA graph's capture runs the program's host code without running its
+device work, and a replay runs the device work without the host code. So
+while a capture is recorded (`recording`), counters and launches go into
+the recording alone, on every thread, recorder on or off; each replay then
+gives them again (`replayed`): the launches join the totals, and while the
+recorder is on every counter is recorded anew, a device-valued one with a
+copy of the value that this replay computed. Ranges are host time and are
+not given again: a replay's is the caller's (`step.replay`).
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ _counters: collections.deque = collections.deque(maxlen=CAPACITY)
 _ids = itertools.count()
 _local = threading.local()
 _launches: collections.Counter = collections.Counter()
+_capture = None  # the `recording` open, if any
 
 
 def enabled() -> bool:
@@ -108,8 +119,10 @@ class region:
 
 def count(name: str, value) -> None:
     """A counter reading: `value` is a host int or a 0-d tensor that the
-    program has computed already (never a view into a larger buffer)."""
-    if _profiler._is_profiler_enabled:
+    program has computed already (never a view into a large buffer)."""
+    if _capture is not None:
+        _capture.counters.append((name, value))
+    elif _profiler._is_profiler_enabled:
         stack = _stack()
         _counters.append([name, value, time.time_ns(), threading.get_ident(),
                           stack[-1] if stack else None])
@@ -118,8 +131,8 @@ def count(name: str, value) -> None:
 def launched(kernel: str) -> None:
     """One launch of the hand-written kernel `kernel`, counted into its
     total always and as `kernel.<kernel>.launches` while the recorder is
-    on."""
-    _launches[kernel] += 1
+    on; into the open `recording` instead, if there is one."""
+    (_launches if _capture is None else _capture.launches)[kernel] += 1
     count(f"kernel.{kernel}.launches", 1)
 
 
@@ -127,6 +140,58 @@ def launches() -> collections.Counter:
     """The launches of each kernel in this process so far (0 for a kernel
     never launched)."""
     return collections.Counter(_launches)
+
+
+class recording:
+    """`with recording() as rec:` around a CUDA graph's capture: keeps the
+    counters (`rec.counters`, (name, value) in order) and kernel launches
+    (`rec.launches`) that the captured code gives, on any thread, for
+    `replayed` to give at each replay."""
+
+    def __init__(self):
+        self.counters: list = []
+        self.launches: collections.Counter = collections.Counter()
+
+    def __enter__(self):
+        global _capture
+        if _capture is not None:
+            raise RuntimeError("a capture is being recorded already")
+        _capture = self
+        return self
+
+    def __exit__(self, *exc):
+        global _capture
+        _capture = None
+        return False
+
+
+def replayed(rec: recording) -> None:
+    """One replay of the graph whose capture `rec` recorded: its launches
+    join the totals, and while the recorder is on its counters are counted
+    again, the device-valued ones with copies of this replay's values
+    (`copies`, taken on the current stream after the replay's launch)."""
+    _launches.update(rec.launches)
+    if _profiler._is_profiler_enabled:
+        values = iter(copies([v for _, v in rec.counters if isinstance(v, torch.Tensor)]))
+        for name, value in rec.counters:
+            count(name, next(values) if isinstance(value, torch.Tensor) else value)
+
+
+def copies(tensors: list) -> list:
+    """Copies of 0-d tensors, one launch for each dtype among them (a
+    `stack`, or a `clone` for a dtype alone), as views of the stacks."""
+    by_dtype = collections.defaultdict(list)
+    for i, t in enumerate(tensors):
+        by_dtype[t.dtype].append(i)
+    out = [None] * len(tensors)
+    for idx in by_dtype.values():
+        if len(idx) == 1:
+            out[idx[0]] = tensors[idx[0]].clone()
+        else:
+            stacked = torch.stack([tensors[i] for i in idx])
+            for k, i in enumerate(idx):
+                out[i] = stacked[k]
+    return out
 
 
 def _resolve(counters: list) -> None:

@@ -31,7 +31,10 @@ each read of a device value that its decisions, logs and reports need
 (checkpoints and PLY snapshots are not counted); see tracing.py.
 
 `render_fn` (JAX `Trainer(render_fn=)`) replaces the trainer's render, e.g.
-by the dense oracle or parallel/sharding.py's band-sharded render.
+by the dense oracle or parallel/sharding.py's band-sharded render. With
+the trainer's own render, each step on a card is a replay of a CUDA graph
+(train/step.py, `StepGraphs`); with a given `render_fn`, and on the CPU,
+the steps run eagerly.
 
 Checkpoints (`save_checkpoint`, `load_checkpoint`) use the JAX package's
 npz layout key for key, dtype for dtype, padded rows included, so a
@@ -67,7 +70,7 @@ from ..models.gaussians import (
 from ..ops.losses import l1_loss, psnr
 from ..ops.rasterize import render_tiled
 from .state import TrainState, from_numpy, init_train_state
-from .step import make_train_step
+from .step import StepGraphs, make_train_step
 
 
 def dtu_background_mask(gt_image: np.ndarray, is_scan110: bool) -> np.ndarray:
@@ -147,12 +150,18 @@ class Trainer:
                             mean2d_carrier=mean2d_carrier)
 
     def _build_steps(self, spatial_lr_scale: float):
+        """The binocular and the plain step; with the trainer's own render,
+        each replayed as a CUDA graph on a card (`StepGraphs`: its key reads
+        the pair capacity the trainer grows)."""
         self.steps = {
             binocular: make_train_step(self.render, self.cfg, spatial_lr_scale,
                                        binocular=binocular,
                                        use_alpha_weight=self.use_alpha_weight)
             for binocular in (False, True)
         }
+        if self.render_fn is None:
+            graphs = StepGraphs(lambda: self.raster)
+            self.steps = {b: graphs.wrap(step) for b, step in self.steps.items()}
 
     def load_checkpoint(self, path: str) -> int:
         """Replace the state with a checkpoint's (its capacity, SH degrees and

@@ -5,7 +5,8 @@ Counterpart of `binocular3dgs_tpu/train/state.py` (reference
 the xyz exponential LR schedule). Moments are fixed-capacity tensors beside
 the parameter buffers, row for row; densification (models/densify.py)
 re-scatters them. `adam_step` is a host integer: the bias corrections are
-computed on the host and the step never reads the device.
+computed on the host (`bias_corrections`) and the step never reads the
+device.
 
 `adam_update` updates parameters and moments IN PLACE (the JAX version
 returns new arrays): the state owns its tensors, and in-place updates keep
@@ -42,6 +43,29 @@ class TrainState:
 
     def replace(self, **kwargs) -> "TrainState":
         return dataclasses.replace(self, **kwargs)
+
+    def buffers(self) -> list[torch.Tensor]:
+        """Every tensor of the state, in the order `with_buffers` takes
+        them: the parameters, the active mask, both moments, the
+        densification statistics."""
+        return [*(getattr(self.model.params, n) for n in PARAM_NAMES), self.model.active,
+                *(getattr(self.adam_m, n) for n in PARAM_NAMES),
+                *(getattr(self.adam_v, n) for n in PARAM_NAMES),
+                self.grad_accum, self.denom, self.max_radii2d]
+
+    def with_buffers(self, tensors) -> "TrainState":
+        """The state with its tensors replaced by `tensors` (`buffers`'
+        order); its step count and the model's settings unchanged."""
+        t = list(tensors)
+        k = len(PARAM_NAMES)
+
+        def tree(i):
+            return GaussianParams(**dict(zip(PARAM_NAMES, t[i:i + k])))
+
+        model = dataclasses.replace(self.model, params=tree(0), active=t[k])
+        return self.replace(model=model, adam_m=tree(k + 1), adam_v=tree(2 * k + 1),
+                            grad_accum=t[3 * k + 1], denom=t[3 * k + 2],
+                            max_radii2d=t[3 * k + 3])
 
 
 def zeros_like_params(params: GaussianParams) -> GaussianParams:
@@ -104,9 +128,9 @@ def xyz_lr_fn(opt: OptimizationConfig, spatial_lr_scale: float):
     )
 
 
-def group_lrs(opt: OptimizationConfig, xyz_lr: float) -> dict[str, float]:
+def group_lrs(opt: OptimizationConfig, xyz_lr) -> dict:
     """Per-group learning rates keyed by parameter name (reference
-    `scene/gaussian_model.py:154-161`)."""
+    `scene/gaussian_model.py:154-161`); `xyz_lr` a number or a 0-d tensor."""
     return dict(
         xyz=xyz_lr,
         f_dc=opt.feature_lr,
@@ -117,6 +141,21 @@ def group_lrs(opt: OptimizationConfig, xyz_lr: float) -> dict[str, float]:
     )
 
 
+def bias_corrections(step: int) -> tuple[float, float]:
+    """The factors by which the Adam step after `step` steps multiplies its
+    moments: 1 / (1 - b1^t) and 1 / (1 - b2^t), t = step + 1, the powers in
+    float32 as the JAX version computes them, each reciprocal taken in
+    double and rounded to float32. That is what a card computes for
+    `m / (1 - b1^t)` with a host number (measured on an H100 with PyTorch
+    2.11: a multiply by the divisor's reciprocal, rounded from double), so
+    a 0-d float32 tensor of the factor, a CUDA graph's input, keeps those
+    bits; the CPU divides, which the factor matches to an ulp."""
+    t = np.float32(step + 1)
+    b1t = 1.0 - float(np.float32(ADAM_B1) ** t)
+    b2t = 1.0 - float(np.float32(ADAM_B2) ** t)
+    return float(np.float32(1.0 / b1t)), float(np.float32(1.0 / b2t))
+
+
 @torch.no_grad()
 def adam_update(
     params: GaussianParams,
@@ -124,23 +163,24 @@ def adam_update(
     m: GaussianParams,
     v: GaussianParams,
     step: int,
-    lrs: dict[str, float],
+    lrs: dict,
     active: torch.Tensor,
+    corrections: tuple | None = None,
 ) -> int:
     """One Adam step with torch semantics (bias-corrected, eps added after
     the square root of the corrected second moment), masked to active rows
     so padded rows keep their sentinel values. Updates `params`, `m` and `v`
-    in place; returns the new step count."""
-    t = step + 1
-    # float32 powers, as the JAX version computes them
-    b1t = 1.0 - float(np.float32(ADAM_B1) ** np.float32(t))
-    b2t = 1.0 - float(np.float32(ADAM_B2) ** np.float32(t))
+    in place; returns the new step count. `corrections` gives
+    `bias_corrections(step)` (host numbers, or 0-d float32 tensors on the
+    parameters' device, which a CUDA graph reads); a learning rate may be
+    either too."""
+    b1t_inv, b2t_inv = bias_corrections(step) if corrections is None else corrections
     for n in PARAM_NAMES:
         p, g, mi, vi = (getattr(x, n) for x in (params, grads, m, v))
         mask = active.reshape((-1,) + (1,) * (p.ndim - 1))
         g = torch.where(mask, g, 0.0)
         mi.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * g)
         vi.mul_(ADAM_B2).add_((1.0 - ADAM_B2) * (g * g))
-        p_new = p - lrs[n] * (mi / b1t) / (torch.sqrt(vi / b2t) + ADAM_EPS)
+        p_new = p - lrs[n] * (mi * b1t_inv) / (torch.sqrt(vi * b2t_inv) + ADAM_EPS)
         p.copy_(torch.where(mask, p_new, p))
-    return t
+    return step + 1

@@ -18,8 +18,10 @@ machine that has only PyTorch:
 """
 
 import collections
+import contextlib
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -612,10 +614,12 @@ def test_a_range_holds_its_kernels_on_the_device_clock(cuda_device):
         assert probe["start_ns"] <= start and end <= probe["end_ns"]
 
 
-def toy_trainer(device):
-    """A trainer of a 3-view toy scene (30 points, 40x30) after 16
+def toy_trainer(device, eager=False):
+    """A trainer of a 3-view toy scene (30 points, 40x30, the cameras
+    turned about two axes, so that the camera products round) after 16
     iterations: its next steps are binocular, and iterations 17-20 are one
-    span that ends in a densification."""
+    span that ends in a densification. With `eager` its steps run eagerly
+    (not replayed as CUDA graphs) from the first."""
     from binocular3dgs_torch.data.dataset import Scene, View
     from binocular3dgs_torch.data.ply import PointCloud
     from binocular3dgs_torch.data.readers import SceneInfo
@@ -623,8 +627,13 @@ def toy_trainer(device):
 
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(30, 3)) * 0.4 + [0, 0, 4]
-    views = [View(make_camera(np.eye(3), np.array([tx, 0.0, 0.0]), 0.9, 0.7, 40, 30,
-                              device="cpu"),
+    def turned(a, b):
+        ca, sa, cb, sb = np.cos(a), np.sin(a), np.cos(b), np.sin(b)
+        return (np.array([[ca, 0.0, sa], [0.0, 1.0, 0.0], [-sa, 0.0, ca]])
+                @ np.array([[1.0, 0.0, 0.0], [0.0, cb, -sb], [0.0, sb, cb]]))
+
+    views = [View(make_camera(turned(0.07 * (i - 1), 0.05 + 0.03 * i),
+                              np.array([tx, 0.01 * i, 0.0]), 0.9, 0.7, 40, 30, device="cpu"),
                   rng.random((30, 40, 3)).astype(np.float32), None, f"v{i}", i, i)
              for i, tx in enumerate((-0.1, 0.0, 0.1))]
     info = SceneInfo(PointCloud(points=pts, colors=rng.random((30, 3))), [], [],
@@ -635,16 +644,19 @@ def toy_trainer(device):
     cfg.train.shift_cam_start = 15
     cfg.train.test_iterations = cfg.train.save_iterations = ()
     trainer = Trainer(cfg, Scene(views, [], 1.0, info), device=device)
+    if eager:
+        trainer.steps = {b: step.eager for b, step in trainer.steps.items()}
     trainer.train(16)
     return trainer
 
 
 @pytest.mark.cuda
 def test_tracing_adds_no_sync_to_a_span(cuda_device):
-    """Under the sync debug mode, one fused span of binocular steps (17-20,
-    with its read and densification) warns no more often while a profiler
-    traces than without one; the traced span records the backward's ranges
-    from autograd's device thread."""
+    """Under the sync debug mode, one fused span of eager binocular steps
+    (17-20, with its read and densification) warns no more often while a
+    profiler traces than without one; the traced span records the
+    backward's ranges from autograd's device thread. (A replayed step runs
+    no backward on the host: `test_graphed_span_syncs_no_more_than_eager`.)"""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -661,8 +673,8 @@ def test_tracing_adds_no_sync_to_a_span(cuda_device):
         torch.cuda.synchronize()
         return [str(w.message) for w in caught if "synchroniz" in str(w.message)]
 
-    off = span_syncs(toy_trainer(cuda_device))
-    trainer = toy_trainer(cuda_device)
+    off = span_syncs(toy_trainer(cuda_device, eager=True))
+    trainer = toy_trainer(cuda_device, eager=True)
     with profile(activities=[ProfilerActivity.CUDA]):
         main = threading.get_ident()
         on = span_syncs(trainer)
@@ -671,6 +683,167 @@ def test_tracing_adds_no_sync_to_a_span(cuda_device):
     backward = [r for r in tracing.snapshot()["ranges"] if r["name"] == "render.blend.backward"
                 and r["iteration"] in range(17, 21)]
     assert len(backward) == 8 and all(r["thread"] != main for r in backward)
+
+
+def clone_train_state(state):
+    """A copy of every buffer of `state`, as the benchmark's restore makes."""
+    return state.with_buffers([t.clone() for t in state.buffers()])
+
+
+def run_toy_spans(device, eager, traced=False):
+    """A toy trainer (graphed, or eager from the first step) run through
+    17-25 (two spans: 17-20 ends in a densification), its state then
+    swapped for a copy of the state at 16 with the draws reseeded (as the
+    benchmark's restore does) and run through 17-25 again, under a profiler
+    with `traced`. Returns every buffer as int32 views (`bits`), each
+    step's losses (`losses`, int32 views) and counts (`counts`) kept over
+    both runs and read after the last, the kernel launches of the two runs
+    (`launches`), the counters the second run recorded (`counters`, sorted,
+    without the graphs' own) and, graphed, its replays (`replays`)."""
+    import random
+
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = toy_trainer(device, eager=eager)
+    start, seed = clone_train_state(trainer.state), trainer.cfg.train.seed + 1
+    kept, steps = [], dict(trainer.steps)
+
+    def keep(state, *args):
+        state, metrics = steps[True](state, *args)
+        kept.append(metrics)
+        return state, metrics
+
+    trainer.steps = {**steps, True: keep}
+    before = tracing.launches()
+    trainer.train(25, first_iteration=17)
+    trainer.state = clone_train_state(start)
+    trainer.rng, trainer.generator = random.Random(seed), torch.Generator().manual_seed(seed)
+    replays = None if eager else steps[True].graphs.replays
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CUDA]) if traced else contextlib.nullcontext():
+        trainer.train(25, first_iteration=17)
+    torch.cuda.synchronize()
+    out = dict(launches=tracing.launches() - before, bits=state_bits(trainer.state))
+    if not eager:
+        out["replays"] = steps[True].graphs.replays - replays
+    out["counters"] = sorted((c["iteration"] or 0, c["name"], c["value"])
+                             for c in tracing.snapshot(since_ns=t0)["counters"]
+                             if not c["name"].startswith("step.graph_")) if traced else []
+    out["losses"] = torch.stack([torch.stack([m.loss, m.l1, m.disparity_loss, m.alpha_loss])
+                                 for m in kept]).view(torch.int32).tolist()
+    out["counts"] = [[int(m.n_visible), int(m.num_pairs), int(m.max_tile_pairs)] for m in kept]
+    return out
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_equals_the_eager_trainer(cuda_device):
+    """The trainer's steps replayed as CUDA graphs and the same steps run
+    eagerly, over two spans that cross a densification and a state swapped
+    in as the benchmark's restore does: every buffer bit for bit, and every
+    step's losses and counts kept by the caller across the spans and read
+    after the last (a replay overwrites no earlier step's metrics)."""
+    graphed = run_toy_spans(cuda_device, eager=False)
+    eager = run_toy_spans(cuda_device, eager=True)
+    assert graphed["replays"] == 9
+    assert all(torch.equal(a, b) for a, b in zip(graphed["bits"], eager["bits"]))
+    assert graphed["losses"] == eager["losses"] and graphed["counts"] == eager["counts"]
+    assert len(graphed["losses"]) == 18 and len({tuple(v) for v in graphed["losses"]}) > 9
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_counts_launches_and_counters_as_eager(cuda_device):
+    """`tracing.launches()` counts a replay's captured kernels, and a
+    traced replay gives its capture's counters again with this replay's
+    device values: both equal the eager trainer's, step for step."""
+    graphed = run_toy_spans(cuda_device, eager=False, traced=True)
+    eager = run_toy_spans(cuda_device, eager=True, traced=True)
+    assert graphed["replays"] == 9
+    assert graphed["launches"] == eager["launches"]
+    assert graphed["launches"]["blend_backward"] == 2 * 18
+    assert graphed["counters"] == eager["counters"]
+    names = collections.Counter(c[1] for c in graphed["counters"])
+    assert names["render.pairs_wanted"] == names["render.bin_slots"] == 2 * 9
+    assert names["step.visible"] == 9 and names["loss.ssim_elems"] == 9
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_repeats_bit_for_bit(cuda_device):
+    """Two graphed runs of the same spans: every buffer and every kept
+    metric equal bit for bit."""
+    a, b = run_toy_spans(cuda_device, eager=False), run_toy_spans(cuda_device, eager=False)
+    assert all(torch.equal(x, y) for x, y in zip(a["bits"], b["bits"]))
+    assert a["losses"] == b["losses"] and a["counts"] == b["counts"]
+
+
+@pytest.mark.cuda
+def test_a_bias_correction_factor_divides_as_the_card_does(cuda_device):
+    """The card divides a float32 tensor by a host number as a multiply by
+    the number's reciprocal rounded from double: the factor that
+    `bias_corrections` gives, in a 0-d tensor (a graph's input) or as a
+    number, has the bits of the division at every step of both cells'
+    blocks (the reciprocal taken in float32 would differ at 4006-4007)."""
+    import numpy as np
+
+    from binocular3dgs_torch.train.state import bias_corrections
+
+    v = torch.rand(1 << 20, generator=torch.Generator().manual_seed(3)).to(cuda_device) * 1e-6
+    for step in [*range(0, 8), *range(4001, 4102), *range(20001, 20010)]:
+        b1t_inv, b2t_inv = bias_corrections(step)
+        for inv, b in ((b1t_inv, 0.9), (b2t_inv, 0.999)):
+            divisor = 1.0 - float(np.float32(b) ** np.float32(step + 1))
+            want = (v / divisor).view(torch.int32)
+            assert torch.equal((v * torch.tensor(inv, device=cuda_device)).view(torch.int32),
+                               want), step
+            assert torch.equal((v * inv).view(torch.int32), want), step
+
+
+@pytest.mark.cuda
+def test_a_dead_trainers_graphs_go_before_another_capture(cuda_device):
+    """A trainer dropped with its graphs is cyclic garbage (its steps hold
+    its render); freeing a graph inside another trainer's capture would
+    invalidate that capture. With the collector run at every chance, a
+    second trainer still captures and trains."""
+    import gc
+
+    first = toy_trainer(cuda_device)
+    assert first.steps[True].graphs.captures >= 1
+    del first
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        second = toy_trainer(cuda_device)
+        second.train(20, first_iteration=17)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert second.steps[True].graphs.replays >= 4
+
+
+@pytest.mark.cuda
+def test_graphed_span_syncs_no_more_than_eager(cuda_device):
+    """Staging a replay's inputs (device copies and fills) adds no host
+    sync: a graphed span of binocular steps warns no more often under the
+    sync debug mode than the eager one; every step of it is a replay."""
+    import warnings
+
+    def span_syncs(trainer):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                trainer.train(19, first_iteration=17)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+
+    eager = span_syncs(toy_trainer(cuda_device, eager=True))
+    trainer = toy_trainer(cuda_device)
+    graphs = trainer.steps[True].graphs
+    replays, captures = graphs.replays, graphs.captures
+    graphed = span_syncs(trainer)
+    assert len(graphed) <= len(eager)
+    assert (graphs.replays - replays, graphs.captures - captures) == (3, 0)
 
 
 @pytest.mark.cuda
