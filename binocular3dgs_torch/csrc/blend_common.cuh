@@ -159,4 +159,64 @@ __device__ __forceinline__ int warp_sum10_field(int lane) {
   return ((lane >> 4) & 1) * 5 + ia;
 }
 
+// ---------------------------------------------------------------------------
+// Work items of the blend kernels. A tile of at most `chunk` pairs is
+// walked whole by one block, as the kernels always walked a tile. A longer
+// ("long") tile is split into n = ceil(count / chunk) chunk items, chunk c
+// holding its pairs [c * chunk, min(count, (c + 1) * chunk)), one block
+// each. The plan (csrc/blend_forward.cu:blend_plan_kernel;
+// ops/blend_cuda.py:blend_plan_torch is the plain mirror) is one int32
+// buffer:
+//   [0] chunk items,
+//   first (T: each long tile's first chunk item, -1 for a short tile),
+//   chunk items (chunk_cap: the tile of each, tile by tile in tile order,
+//     so a long tile's chunks are the items first[t] .. first[t] + n - 1),
+//   done (T: a long tile's chunks walked so far; the plan zeroes it).
+// The cap follows from the pair capacity P alone: the counts sum to at most
+// P, and a long tile of c > chunk pairs is n < c / chunk + 1 chunks, so
+// there are at most ceil(P / chunk) + min(T, ceil(P / chunk)) chunk items.
+// Grids are fixed by the tile count and this cap (at most kExtraBlocks
+// blocks for the chunk list); a block walks the chunk items blockIdx.x,
+// + the chunk blocks, ... below the plan's count, so the launches are
+// capturable and read nothing on the host.
+constexpr int kPlanHeader = 1;
+constexpr int kExtraBlocks = 4096;
+
+__host__ __device__ __forceinline__ int chunk_cap(int num_tiles, long long capacity, int chunk) {
+  const int p = static_cast<int>((capacity + chunk - 1) / chunk);
+  return p + (num_tiles < p ? num_tiles : p);
+}
+
+__host__ __device__ __forceinline__ int n_chunks(int count, int chunk) {
+  return count > chunk ? (count - 1) / chunk + 1 : 1;
+}
+
+struct ChunkPlan {
+  int n_chunk;
+  const int* first;
+  const int* chunk_items;
+  int done_offset;  // done's entries from the plan's start
+};
+
+__device__ __forceinline__ ChunkPlan read_plan(const int* plan, int num_tiles, long long capacity,
+                                               int chunk) {
+  ChunkPlan p;
+  p.n_chunk = plan[0];
+  p.first = plan + kPlanHeader;
+  p.chunk_items = p.first + num_tiles;
+  p.done_offset = kPlanHeader + num_tiles + chunk_cap(num_tiles, capacity, chunk);
+  return p;
+}
+
+// The boundary state of the long tiles' chunks, one slot of kTilePixels
+// values per chunk item in each plane of (kScratchPlanes, chunk_cap, 256)
+// float32 scratch: the chunk's local T (its blend from T = 1, read by the
+// later chunks for their T_in), its T at its end (sign: see
+// blend_forward.cu), the colour and depth accumulated through it (the
+// local walk writes its own, the walk from T_in the chunk's part, the
+// combine the sum over the tile's chunks up to this one), and n_contrib as
+// int32 bits.
+constexpr int kScratchPlanes = 7;
+enum ScratchPlane { kPlaneLocalT = 0, kPlaneT = 1, kPlaneColor = 2, kPlaneLast = 6 };
+
 }  // namespace b3dgs

@@ -16,16 +16,27 @@ blended pair), S = tile_size**2, pixel s of tile t at
 the sums over the tile's pixels of d_mx, d_my, d_a, d_b, d_c, d_op, d_r,
 d_g, d_b, d_depth, zero for every other slot and row.
 
-`blend_forward` launches the forward kernel (csrc/blend_forward.cu) for CUDA
-tensors and runs `blend_forward_torch` for CPU tensors; its autograd
+`blend_forward` launches the forward kernels (csrc/blend_forward.cu) for
+CUDA tensors and runs `blend_forward_torch` for CPU tensors; its autograd
 backward does the same with csrc/blend_backward.cu and
 `blend_backward_torch`. On a CUDA tensor a wrapper launches or raises, it
 never falls back. Kernels and plain versions compute alpha through one
 expression each (`splat_eval` in csrc/blend_common.cuh, `_splat` here),
 so the backward gates pairs exactly as the forward did.
+
+The kernels walk work items, not tiles: a tile of at most `BLEND_CHUNK`
+pairs is one item, walked whole as the kernels always walked a tile; a
+longer tile is split into chunks of `BLEND_CHUNK` pairs, one item each,
+each blended from T = 1 and then from the transmittance the earlier chunks
+leave, and combined in chunk order (`blend_plan` lists the items on the
+device; `blend_plan_torch` is its plain mirror). The forward keeps each
+chunk's boundary state (`BlendState`) for the backward, which walks every
+item's pairs once, in one launch.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +52,94 @@ KERNEL_TILE_SIZE = 16
 # 1 - ALPHA_CLAMP as float32 (0.01f): the floor of 1 - alpha when the
 # backward divides the transmittance back (blend.py: one_minus)
 ONE_MINUS_FLOOR = 1.0 - ALPHA_CLAMP
+
+# pairs of a long tile's work item (csrc/blend_forward.cu's design note has
+# the sweep that chose it); a multiple of the kernels' staging batch, so
+# that every chunk but a tile's last is whole batches
+BLEND_CHUNK = 256
+KERNEL_BATCH = 128
+PLAN_HEADER = 1  # csrc/blend_common.cuh: kPlanHeader
+SCRATCH_PLANES = 7  # csrc/blend_common.cuh: kScratchPlanes
+
+def chunk_cap(num_tiles: int, capacity: int, chunk: int) -> int:
+    """The chunk items that a plan of `num_tiles` tiles over a pair
+    capacity `capacity` can hold (csrc/blend_common.cuh): the counts sum to
+    at most the capacity, and a long tile of c > chunk pairs is fewer than
+    c / chunk + 1 chunks, so at most ceil(capacity / chunk) + min(num_tiles,
+    ceil(capacity / chunk))."""
+    p = -(-capacity // chunk)
+    return p + min(num_tiles, p)
+
+
+def plan_size(num_tiles: int, capacity: int, chunk: int) -> int:
+    """int32 entries of a plan (csrc/blend_common.cuh's layout)."""
+    return PLAN_HEADER + 2 * num_tiles + chunk_cap(num_tiles, capacity, chunk)
+
+
+class BlendPlan(NamedTuple):
+    chunk: int
+    plan: torch.Tensor  # int32 work list, csrc/blend_common.cuh's layout
+    chunks: torch.Tensor  # () int32 work items that walk at least one pair
+    longest_walk: torch.Tensor  # () int32 the most pairs one item walks
+
+
+class BlendState(NamedTuple):
+    """The forward kernels' plan and the long tiles' boundary state, for the
+    backward: `scratch` (SCRATCH_PLANES, chunk items cap, 256) float32."""
+
+    plan: BlendPlan
+    scratch: torch.Tensor
+
+
+def _check_chunk(chunk: int) -> None:
+    if chunk <= 0 or chunk % KERNEL_BATCH:
+        raise ValueError(f"the blend's chunk must be a positive multiple of {KERNEL_BATCH}, "
+                         f"got {chunk}")
+
+
+def blend_plan_torch(tile_count: torch.Tensor, capacity: int, chunk: int) -> BlendPlan:
+    """The plain mirror of the plan kernel (csrc/blend_forward.cu:
+    blend_plan_kernel): the same int32 buffer, the list's unused tail 0
+    where the kernel leaves it unwritten."""
+    _check_chunk(chunk)
+    dev = tile_count.device
+    T = tile_count.shape[0]
+    cap = chunk_cap(T, capacity, chunk)
+    c = tile_count.long()
+    n = torch.where(c > chunk, (c - 1) // chunk + 1, 1)
+    n_long = torch.where(n > 1, n, 0)
+    first = torch.where(n > 1, torch.cumsum(n_long, 0) - n_long, -1)
+    items = torch.repeat_interleave(torch.arange(T, device=dev), n_long)
+    plan = torch.zeros(plan_size(T, capacity, chunk), dtype=torch.int64, device=dev)
+    plan[0] = min(items.numel(), cap)
+    plan[PLAN_HEADER:PLAN_HEADER + T] = first
+    o = PLAN_HEADER + T
+    plan[o:o + min(items.numel(), cap)] = items[:cap]
+    chunks = n[c > 0].sum()
+    longest = c.clamp(max=chunk).max() if T else c.new_zeros(())
+    return BlendPlan(chunk, plan.to(torch.int32), chunks.to(torch.int32),
+                     longest.to(torch.int32))
+
+
+def blend_plan(tile_count: torch.Tensor, capacity: int, chunk: int | None = None) -> BlendPlan:
+    """The work items of the blend kernels for tiles of `tile_count` pairs
+    (a CUDA tensor) and the pair capacity `capacity` (the records'
+    columns), in chunks of `chunk` pairs (default `BLEND_CHUNK`): one
+    kernel, reading no count on the host. The plain blend on the CPU walks
+    no items; `blend_plan_torch` is the kernel's mirror for the tests."""
+    chunk = BLEND_CHUNK if chunk is None else chunk
+    if tile_count.dtype != torch.int32 or tile_count.ndim != 1 or not tile_count.is_cuda:
+        raise ValueError(f"tile_count must be (T,) int32 on a card, got "
+                         f"{tuple(tile_count.shape)} {tile_count.dtype} on {tile_count.device}")
+    _check_chunk(chunk)
+    _check_kernel_inputs("blend_plan", KERNEL_TILE_SIZE, tile_count=tile_count)
+    T = tile_count.shape[0]
+    new = tile_count.new_empty
+    plan = BlendPlan(chunk, new(plan_size(T, capacity, chunk)), new(()), new(()))
+    launch("b3dgs_blend_plan", tile_count.device, tile_count, T, capacity, chunk, plan.plan,
+           plan.chunks, plan.longest_walk)
+    return plan
+
 
 def _tile_pixel_coords(TW: int, TH: int, ts: int, device):
     t = torch.arange(TW * TH, device=device)
@@ -275,34 +374,52 @@ def _check_kernel_inputs(name, ts, **tensors):
             raise ValueError(f"{name} needs a contiguous {arg}")
 
 
-def _launch(records, tile_start, tile_count, TW, TH, ts):
+def blend_forward_cuda(records, tile_start, tile_count, TW, TH, ts, plan=None):
+    """(out5, n_contrib, BlendState) of the forward kernels, without
+    autograd: the whole walk of the short tiles with the local walk of the
+    long tiles' chunks, then the chunks' walk from T_in with the combine,
+    over `plan`'s items (by default `blend_plan`'s for these tiles)."""
     _check_kernel_inputs("blend_forward", ts, records=records, tile_start=tile_start,
                          tile_count=tile_count)
-    T, S = TW * TH, ts * ts
-    out5 = torch.empty(5, T, S, dtype=torch.float32, device=records.device)
-    n_contrib = torch.empty(T, S, dtype=torch.int32, device=records.device)
-    launch("b3dgs_blend_forward", records.device, records, records.shape[1], tile_start,
-           tile_count, TW, T, out5, n_contrib)
-    return out5, n_contrib
+    T, S, P = TW * TH, ts * ts, records.shape[1]
+    if plan is None:
+        plan = blend_plan(tile_count, P)
+    if plan.plan.shape != (plan_size(T, P, plan.chunk),) or plan.plan.device != records.device:
+        raise ValueError("blend_forward: the plan is not of these tiles and records")
+    dev = records.device
+    scratch = torch.empty(SCRATCH_PLANES, chunk_cap(T, P, plan.chunk), S, dtype=torch.float32,
+                          device=dev)
+    out5 = torch.empty(5, T, S, dtype=torch.float32, device=dev)
+    n_contrib = torch.empty(T, S, dtype=torch.int32, device=dev)
+    launch("b3dgs_blend_forward", dev, records, P, tile_start, tile_count, TW, T, plan.chunk,
+           plan.plan, scratch, out5, n_contrib,
+           launches={"blend_forward": 1, "blend_chunk": 1})
+    return out5, n_contrib, BlendState(plan, scratch)
 
 
-def _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts):
+def _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts, state):
     d_out5 = d_out5.contiguous()
     _check_kernel_inputs("blend_backward", ts, records=records, tile_start=tile_start,
                          tile_count=tile_count, out5=out5, n_contrib=n_contrib)
     T = TW * TH
+    if state is None:
+        raise ValueError("blend_backward on a card needs the state of the forward kernels that "
+                         "gave out5 and n_contrib (blend_forward_cuda)")
     # zeros: the kernel writes only the pairs it walks, each tile's pairs
     # below its largest n_contrib; the rest of the tile's segment must read
     # 0 in the gather backward, which sums every sorted slot below bin_slots
     d_records = torch.zeros_like(records)
     launch("b3dgs_blend_backward", records.device, records, records.shape[1], tile_start,
-           tile_count, out5, n_contrib, d_out5, TW, T, d_records)
+           tile_count, out5, n_contrib, d_out5, TW, T, state.plan.chunk, state.plan.plan,
+           state.scratch, d_records)
     return d_records
 
 
-def blend_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts):
+def blend_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW, TH, ts,
+                   state=None):
     """d_records of the tile blend from the forward's inputs and outputs and
-    the cotangent `d_out5`: the CUDA kernel for CUDA tensors,
+    the cotangent `d_out5`: the CUDA kernel for CUDA tensors, from the
+    `state` of the forward kernels that gave out5 and n_contrib,
     `blend_backward_torch` for CPU tensors."""
     _check_inputs(records, tile_start, tile_count, TW, TH, ts)
     T, S = TW * TH, ts * ts
@@ -314,7 +431,7 @@ def blend_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW,
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
     if records.is_cuda:
         return _launch_backward(records, tile_start, tile_count, out5, n_contrib, d_out5,
-                                TW, TH, ts)
+                                TW, TH, ts, state)
     if records.device.type == "cpu":
         return blend_backward_torch(records, tile_start, tile_count, out5, n_contrib, d_out5,
                                     TW, TH, ts)
@@ -323,9 +440,11 @@ def blend_backward(records, tile_start, tile_count, out5, n_contrib, d_out5, TW,
 
 class _BlendForward(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, records, tile_start, tile_count, TW, TH, ts):
+    def forward(ctx, records, tile_start, tile_count, TW, TH, ts, plan):
+        state = None
         if records.is_cuda:
-            out5, n_contrib = _launch(records, tile_start, tile_count, TW, TH, ts)
+            out5, n_contrib, state = blend_forward_cuda(records, tile_start, tile_count, TW, TH,
+                                                        ts, plan)
         elif records.device.type == "cpu":
             out5, n_contrib = blend_forward_torch(records, tile_start, tile_count, TW, TH, ts)
         else:
@@ -333,13 +452,14 @@ class _BlendForward(torch.autograd.Function):
         ctx.mark_non_differentiable(n_contrib)
         ctx.save_for_backward(records, tile_start, tile_count, out5, n_contrib)
         ctx.grid = (TW, TH, ts)
+        ctx.state = state
         return out5, n_contrib
 
     @staticmethod
     @tracing.region("render.blend.backward")
     def backward(ctx, d_out5, d_n_contrib):
-        d_records = blend_backward(*ctx.saved_tensors, d_out5, *ctx.grid)
-        return d_records, None, None, None, None, None
+        d_records = blend_backward(*ctx.saved_tensors, d_out5, *ctx.grid, state=ctx.state)
+        return d_records, None, None, None, None, None, None
 
 
 def blend_forward(
@@ -349,8 +469,10 @@ def blend_forward(
     TW: int,
     TH: int,
     ts: int,
+    plan: BlendPlan | None = None,
 ):
-    """(out5, n_contrib) of the tile blend: the CUDA kernel for CUDA tensors,
+    """(out5, n_contrib) of the tile blend: the CUDA kernels for CUDA
+    tensors, over `plan`'s work items (by default `blend_plan`'s),
     `blend_forward_torch` for CPU tensors."""
     _check_inputs(records, tile_start, tile_count, TW, TH, ts)
-    return _BlendForward.apply(records, tile_start, tile_count, TW, TH, ts)
+    return _BlendForward.apply(records, tile_start, tile_count, TW, TH, ts, plan)

@@ -8,8 +8,9 @@ Counterpart of `binocular3dgs_tpu/ops/rasterize.py` (`render_tiled`,
      sorted by (tile, depth rank)
   3. a field-major (10, P) record table of the sorted pairs: each tile's
      records are one contiguous segment (`gather_records`)
-  4. blend (ops/blend_cuda.py): the CUDA kernel reads each tile's exact
-     segment, so the pair axis carries no chunk padding
+  4. blend (ops/blend_cuda.py): the CUDA kernels read each tile's exact
+     segment, so the pair axis carries no chunk padding; a long tile's
+     segment is walked in chunks, one block each (`blend_plan`)
   5. (5, T, S) tile planes -> (5, H, W) image planes, cropped
 
 Gradients: the blend's autograd backward (kernel B2) gives the per-pair
@@ -59,7 +60,7 @@ from ..config import RasterConfig
 from ..core.camera import Camera
 from ..models.gaussians import GaussianModel
 from .binning import TileBinning, bin_gaussians, tile_grid
-from .blend_cuda import blend_forward
+from .blend_cuda import blend_forward, blend_plan
 from .cuda_build import launch
 from .project import ProjectedGaussians, project_for_render
 from .rasterize_reference import RenderOutput
@@ -243,7 +244,12 @@ def rasterize_projected(
     with tracing.region("render.gather"):
         records = gather_records(proj, binning)  # (10, P)
     with tracing.region("render.blend"):
-        out5, _ = blend_forward(records, binning.tile_start, binning.tile_count, TW, TH, ts)
+        plan = None
+        if records.is_cuda:  # the kernels' work items: tiles, long ones in chunks
+            plan = blend_plan(binning.tile_count, records.shape[1])
+            tracing.count("render.blend_chunks", plan.chunks)
+            tracing.count("render.blend_longest_walk", plan.longest_walk)
+        out5, _ = blend_forward(records, binning.tile_start, binning.tile_count, TW, TH, ts, plan)
     with tracing.region("render.planes"):
         planes = _tiles_to_planes(out5, TW, TH, ts, H, W)
         rgb, dep, T_final = planes[0:3], planes[3], planes[4]

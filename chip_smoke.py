@@ -244,7 +244,8 @@ def median_ms(torch, fn, warmup=3, iters=20):
 
 
 def kernel_device_ms(torch, fn, name, reps=20):
-    """Device time per launch of the kernels whose name holds `name`, from
+    """Device time per call of the kernels whose name holds `name` (or any
+    of a tuple of names, one call launching each; counted by the first), from
     torch.profiler over `reps` calls after one warm-up: the kernel alone,
     without the wrapper's host time, which an event pair around one short
     call also holds. Before each call a 64 MiB write evicts the 50 MB L2, so
@@ -263,9 +264,11 @@ def kernel_device_ms(torch, fn, name, reps=20):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else name
     found = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key]
-    us, launches = sum(e.self_device_time_total for e in found), sum(e.count for e in found)
+             if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
+    us = sum(e.self_device_time_total for e in found)
+    launches = sum(e.count for e in found if names[0] in e.key)
     if launches != reps:
         log(f"[profiler] {name}: {launches} of {reps} launches recorded")
     return us / 1e3 / launches if us > 0 else None
@@ -419,12 +422,14 @@ def phase_kernel_parity(torch, model, cam, raster, tag="[4 parity]", grow=False)
     `grow` raises pairs_per_gaussian until nothing overflows (the overdraw
     shape); the plain version is then timed by its one parity call."""
     from benchmark import work
-    from binocular3dgs_torch.ops.blend_cuda import blend_forward, blend_forward_torch
+    from binocular3dgs_torch.ops.blend_cuda import (
+        blend_forward, blend_forward_cuda, blend_forward_torch,
+    )
 
     records, start, count, TW, TH, ts, b, cap = bin_records(torch, model, cam, raster, grow)
     T = TW * TH
     args = (records, start, count, TW, TH, ts)
-    out5, nc = blend_forward(*args)
+    out5, nc, state = blend_forward_cuda(*args)
     torch.cuda.synchronize()
     (want5, want_nc), plain_once_ms = timed_once(torch, lambda: blend_forward_torch(*args))
     rgbT = [0, 1, 2, 4]
@@ -444,7 +449,9 @@ def phase_kernel_parity(torch, model, cam, raster, tag="[4 parity]", grow=False)
     check(nc_equal >= 0.999, f"blend kernel n_contrib equal on only {nc_equal}")
     check(num_pairs <= cap, f"pair capacity overflow: {num_pairs} > {cap}")
 
-    ms, event_ms = kernel_times(torch, lambda: blend_forward(*args), "blend_forward_kernel")
+    # B1 is the plan, the whole and local walks, and the walk from T_in
+    ms, event_ms = kernel_times(torch, lambda: blend_forward(*args), (
+        "blend_forward_kernel", "blend_plan_kernel", "blend_chunk_kernel"))
     plain_ms = plain_once_ms if grow else median_ms(
         torch, lambda: blend_forward_torch(*args), warmup=1, iters=3)
     read, evals, hits, killed = work.forward_work(records, start, count, want_nc, TW, TH, ts)
@@ -482,7 +489,7 @@ def phase_kernel_parity(torch, model, cam, raster, tag="[4 parity]", grow=False)
         library_ms=None,
         library_note="none: no single PyTorch call computes the tile blend",
     )
-    return kernel, dict(args=args, out5=out5, n_contrib=nc, valid_pairs=valid_pairs)
+    return kernel, dict(args=args, out5=out5, n_contrib=nc, state=state, valid_pairs=valid_pairs)
 
 
 def phase_backward_parity(torch, fwd, seed, tag="[7 backward]"):
@@ -495,7 +502,7 @@ def phase_backward_parity(torch, fwd, seed, tag="[7 backward]"):
     d_out5 = torch.from_numpy(rng.normal(size=tuple(out5.shape)).astype(np.float32)).to(
         out5.device)
     args = (records, start, count, out5, nc, d_out5, TW, TH, ts)
-    got = blend_backward(*args)
+    got = blend_backward(*args, state=fwd["state"])
     torch.cuda.synchronize()
     want = blend_backward_torch(*args)
     names = ("mx", "my", "conic_a", "conic_b", "conic_c", "opacity", "r", "g", "b", "depth")
@@ -510,7 +517,8 @@ def phase_backward_parity(torch, fwd, seed, tag="[7 backward]"):
     log(f"{tag} max|diff| / max|row| per row: " + ", ".join(
         f"{k} {v['max_abs']:.3e}/{v['max_row']:.3e}" for k, v in rows.items()) + " (tol 1e-3)")
 
-    ms, event_ms = kernel_times(torch, lambda: blend_backward(*args), "blend_backward_kernel")
+    ms, event_ms = kernel_times(torch, lambda: blend_backward(*args, state=fwd["state"]),
+                                "blend_backward_kernel")
     plain_ms = median_ms(torch, lambda: blend_backward_torch(*args), warmup=1, iters=3)
     walked, evals, hits = work.backward_work(records, start, count, nc, TW, TH, ts)
     T = TW * TH
@@ -1244,13 +1252,16 @@ _LAUNCH_BASE = collections.Counter()
 
 
 def render_launches(renders, backward, width, height, tile_size=16):
-    """The launches of the binning and record gather kernels in `renders`
-    renders of `width` x `height`, `backward` of them differentiated."""
+    """The launches of the binning and record gather kernels and of the
+    blend's work-item kernels beside B1 (its plan and chunk walk)
+    in `renders` renders of `width` x `height`, `backward` of them
+    differentiated."""
     from binocular3dgs_torch.ops.binning import bin_launches, tile_grid
 
     TW, TH = tile_grid(width, height, tile_size)
     out = {k: v * renders for k, v in bin_launches(TW * TH).items()}
-    return dict(out, gather_forward=renders, gather_transpose=backward, gather_backward=backward)
+    return dict(out, gather_forward=renders, gather_transpose=backward, gather_backward=backward,
+                blend_plan=renders, blend_chunk=renders)
 
 
 def launch_counts(reset=False):

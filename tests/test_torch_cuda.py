@@ -2,7 +2,9 @@
 blend backward B2, warp forward W1 and backward W2, the vertex stage's
 forward and backward, SSIM's forward S1 and backward S2, binning and the
 record gather with its backward) against their plain PyTorch versions,
-bit for bit where the kernels keep the plain version's order, and their
+bit for bit where the kernels keep the plain version's order (B1 and B2
+also on tiles long enough to be walked in chunks, and the chunks' work
+list against its plain mirror), and their
 launch counters around a render and a training step; a training step that
 repeats bit for bit; the port's ranges on the
 profiler's device clock, and a traced span of the trainer that syncs no
@@ -38,10 +40,15 @@ from binocular3dgs_torch.ops.binning import (
     bin_gaussians, bin_gaussians_torch, bin_launches, tile_grid,
 )
 from binocular3dgs_torch.ops.blend_cuda import (
+    BLEND_CHUNK,
+    PLAN_HEADER,
     blend_backward,
     blend_backward_torch,
     blend_forward,
+    blend_forward_cuda,
     blend_forward_torch,
+    blend_plan,
+    blend_plan_torch,
 )
 from binocular3dgs_torch.ops.project import (
     compute_cov3d, ewa_cov2d, project_backward, project_backward_torch, project_gaussians,
@@ -146,11 +153,13 @@ def test_render_counts_one_launch(cuda_device):
 def test_backward_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elongated):
     model, cam = scene(seed, n, w, h, cuda_device, opacity, elongated=elongated)
     records, start, count, TW, TH = records_for(model, cam)
-    out5, nc = blend_forward_torch(records, start, count, TW, TH, TS)
+    # the forward kernels' outputs and the long tiles' boundary state they
+    # keep for B2, which must be of the same forward as out5 and n_contrib
+    out5, nc, state = blend_forward_cuda(records, start, count, TW, TH, TS)
     g = torch.Generator().manual_seed(seed)
     d_out5 = torch.randn(out5.shape, generator=g).to(cuda_device)
     before = tracing.launches()["blend_backward"]
-    got = blend_backward(records, start, count, out5, nc, d_out5, TW, TH, TS)
+    got = blend_backward(records, start, count, out5, nc, d_out5, TW, TH, TS, state=state)
     torch.cuda.synchronize()
     assert tracing.launches()["blend_backward"] == before + 1
     want = blend_backward_torch(records, start, count, out5, nc, d_out5, TW, TH, TS)
@@ -161,6 +170,141 @@ def test_backward_kernel_matches_plain(cuda_device, seed, n, w, h, opacity, elon
         scale = want[row].abs().max().item()
         assert (got[row] - want[row]).abs().max().item() <= 1e-3 * scale + 1e-12, row
     assert not got[10:].any() and got[:10].abs().max() > 0
+
+
+def long_tile_scene(seed, n, opacity, device, w=400, h=400):
+    """`n` small splats whose means fall within ~40 px of the centre of a
+    `w` x `h` image (Blender's 400x400), so that its central tiles hold
+    thousands of pairs, as the silhouette tiles of the Blender cell do (up
+    to ~3,400 at its start state)."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack([rng.normal(0.0, 0.15, n), rng.normal(0.0, 0.15, n),
+                    rng.uniform(4.0, 6.0, n)], axis=1)
+    q = rng.normal(size=(n, 4))
+    params = dict(
+        xyz=xyz,
+        f_dc=(rng.random((n, 1, 3)) - 0.5) / 0.28209479177387814,
+        f_rest=rng.normal(size=(n, 3, 3)) * 0.1,
+        opacity=np.log(1 / (1 / rng.uniform(*opacity, (n, 1)) - 1)),
+        scaling=np.log(rng.uniform(0.01, 0.05, (n, 3))),
+        rotation=q / np.linalg.norm(q, axis=1, keepdims=True),
+    )
+    model = from_numpy(params, np.ones(n, bool), 1, 1, device=device)
+    return model, make_camera(np.eye(3), np.zeros(3), 0.9, 0.9, w, h, device=device)
+
+
+LONG = [(11, (0.02, 0.1)),  # deep chains: T_in a product of many chunk products
+        (12, (0.3, 0.99))]  # pixels stop within and between chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,opacity", LONG)
+def test_chunked_kernels_match_plain_on_long_tiles(cuda_device, seed, opacity):
+    """B1 and B2 on tiles of >= 3,000 pairs at Blender's 400x400, each tile
+    walked in chunks of BLEND_CHUNK pairs, against their plain versions,
+    under the gates of the one-block walk: the rounding of T_in as a product
+    of chunk products stays inside them (a T_in rounded to bfloat16 does
+    not: PERF.md §6)."""
+    model, cam = long_tile_scene(seed, 12000, opacity, cuda_device)
+    records, start, count, TW, TH = records_for(model, cam)
+    assert int(count.max()) >= 3000
+    out5, nc, state = blend_forward_cuda(records, start, count, TW, TH, TS)
+    want5, want_nc = blend_forward_torch(records, start, count, TW, TH, TS)
+    torch.testing.assert_close(out5[[0, 1, 2, 4]], want5[[0, 1, 2, 4]], atol=1e-4, rtol=0)
+    zmax = want5[3].abs().max().item()
+    torch.testing.assert_close(out5[3], want5[3], atol=1e-5 * zmax + 1e-4, rtol=0)
+    assert (nc == want_nc).float().mean().item() >= 0.999
+    long_ = count > BLEND_CHUNK
+    assert (nc[long_] > BLEND_CHUNK).any()  # pixels blend past the first chunk
+    g = torch.Generator().manual_seed(seed)
+    d_out5 = torch.randn(out5.shape, generator=g).to(cuda_device)
+    got = blend_backward(records, start, count, out5, nc, d_out5, TW, TH, TS, state=state)
+    want = blend_backward_torch(records, start, count, out5, nc, d_out5, TW, TH, TS)
+    for row in range(10):
+        scale = want[row].abs().max().item()
+        assert (got[row] - want[row]).abs().max().item() <= 1e-3 * scale + 1e-12, row
+    assert not got[10:].any()
+
+
+def blend_both(records, start, count, TW, TH, chunk, seed=0):
+    """(out5, n_contrib, d_records) of the kernels in chunks of `chunk`."""
+    plan = blend_plan(count, records.shape[1], chunk)
+    out5, nc, state = blend_forward_cuda(records, start, count, TW, TH, TS, plan)
+    g = torch.Generator().manual_seed(seed)
+    d_out5 = torch.randn(out5.shape, generator=g).to(records.device)
+    d_rec = blend_backward(records, start, count, out5, nc, d_out5, TW, TH, TS, state=state)
+    return out5, nc, d_rec
+
+
+@pytest.mark.cuda
+def test_chunked_walk_equals_the_whole_walk_on_short_tiles(cuda_device):
+    """On a tile of at most BLEND_CHUNK pairs (one work item) B1's planes
+    and n_contrib and B2's rows equal bit for bit those of a run whose chunk
+    holds every tile whole (the one-block walk of each tile)."""
+    model, cam = long_tile_scene(13, 12000, (0.05, 0.5), cuda_device)
+    records, start, count, TW, TH = records_for(model, cam)
+    short = count <= BLEND_CHUNK
+    assert short.any() and (~short).any()
+    whole = -(-int(count.max()) // 128) * 128
+    (a5, anc, ad), (b5, bnc, bd) = (blend_both(records, start, count, TW, TH, k)
+                                    for k in (BLEND_CHUNK, whole))
+    assert torch.equal(bits(a5[:, short]), bits(b5[:, short]))
+    assert torch.equal(anc[short], bnc[short])
+    cols = torch.cat([torch.arange(s, s + c) for s, c in
+                      zip(start[short].tolist(), count[short].tolist())]).to(cuda_device)
+    assert cols.numel() > 0
+    assert torch.equal(bits(ad[:, cols]), bits(bd[:, cols]))
+    # the long tiles differ only by rounding
+    torch.testing.assert_close(a5[:, ~short], b5[:, ~short], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_chunked_kernels_repeat_bit_for_bit(cuda_device):
+    model, cam = long_tile_scene(14, 12000, (0.1, 0.9), cuda_device)
+    args = records_for(model, cam)
+    (a5, anc, ad), (b5, bnc, bd) = (blend_both(*args, BLEND_CHUNK) for _ in range(2))
+    assert torch.equal(bits(a5), bits(b5)) and torch.equal(anc, bnc)
+    assert torch.equal(bits(ad), bits(bd))
+
+
+def plan_lists(plan, T):
+    """The first chunk of each tile and the chunk items of a plan buffer."""
+    p = plan.plan.tolist()
+    o = PLAN_HEADER
+    return p[o:o + T], p[o + T:o + T + p[0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,chunk", [(625, 256), (11970, 256), (47628, 384)])
+def test_plan_kernel_equals_its_mirror(cuda_device, T, chunk):
+    g = torch.Generator().manual_seed(T)
+    count = torch.randint(0, 200, (T,), generator=g, dtype=torch.int32)
+    count[torch.randperm(T, generator=g)[: T // 20]] = torch.randint(
+        257, 3400, (T // 20,), generator=g, dtype=torch.int32)
+    count[:3] = 0
+    capacity = int(count.sum()) + 1000
+    want = blend_plan_torch(count, capacity, chunk)
+    before = tracing.launches()["blend_plan"]
+    got = blend_plan(count.to(cuda_device), capacity, chunk)
+    torch.cuda.synchronize()
+    assert tracing.launches()["blend_plan"] == before + 1
+    assert plan_lists(got, T) == plan_lists(want, T)
+    assert int(got.chunks) == int(want.chunks) and int(got.longest_walk) == chunk
+
+
+@pytest.mark.cuda
+def test_a_render_records_the_blend_work_items(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, cam = long_tile_scene(15, 4000, (0.1, 0.9), cuda_device, 96, 64)
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        out = render_tiled(cam, model, [0.0, 0.0, 0.0], device=cuda_device)
+        torch.cuda.synchronize()
+    value = {c["name"]: c["value"] for c in tracing.snapshot(since_ns=t0)["counters"]}
+    assert int(out.max_tile_pairs) > BLEND_CHUNK
+    assert value["render.blend_longest_walk"] == BLEND_CHUNK
+    assert value["render.blend_chunks"] >= -(-value["render.bin_slots"] // BLEND_CHUNK)
 
 
 @pytest.mark.cuda
@@ -545,6 +689,7 @@ def test_train_step_counts_launches(cuda_device):
     torch.cuda.synchronize()
     after = tracing.launches()
     per_step = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1,
+                    blend_plan=2, blend_chunk=2,
                     project_forward=2, project_backward=2, ssim_forward=1, ssim_backward=1,
                     gather_forward=2, gather_transpose=2, gather_backward=2,
                     **{k: 2 * v for k, v in bin_launches(6 * 4).items()})
@@ -614,19 +759,19 @@ def test_a_range_holds_its_kernels_on_the_device_clock(cuda_device):
         assert probe["start_ns"] <= start and end <= probe["end_ns"]
 
 
-def toy_trainer(device, eager=False):
-    """A trainer of a 3-view toy scene (30 points, 40x30, the cameras
-    turned about two axes, so that the camera products round) after 16
-    iterations: its next steps are binocular, and iterations 17-20 are one
-    span that ends in a densification. With `eager` its steps run eagerly
-    (not replayed as CUDA graphs) from the first."""
+def toy_trainer(device, eager=False, n_points=30):
+    """A trainer of a 3-view toy scene (`n_points` points, 40x30, the
+    cameras turned about two axes, so that the camera products round) after
+    16 iterations: its next steps are binocular, and iterations 17-20 are
+    one span that ends in a densification. With `eager` its steps run
+    eagerly (not replayed as CUDA graphs) from the first."""
     from binocular3dgs_torch.data.dataset import Scene, View
     from binocular3dgs_torch.data.ply import PointCloud
     from binocular3dgs_torch.data.readers import SceneInfo
     from binocular3dgs_torch.train.loop import Trainer
 
     rng = np.random.default_rng(0)
-    pts = rng.normal(size=(30, 3)) * 0.4 + [0, 0, 4]
+    pts = rng.normal(size=(n_points, 3)) * 0.4 + [0, 0, 4]
     def turned(a, b):
         ca, sa, cb, sb = np.cos(a), np.sin(a), np.cos(b), np.sin(b)
         return (np.array([[ca, 0.0, sa], [0.0, 1.0, 0.0], [-sa, 0.0, ca]])
@@ -636,7 +781,7 @@ def toy_trainer(device, eager=False):
                               np.array([tx, 0.01 * i, 0.0]), 0.9, 0.7, 40, 30, device="cpu"),
                   rng.random((30, 40, 3)).astype(np.float32), None, f"v{i}", i, i)
              for i, tx in enumerate((-0.1, 0.0, 0.1))]
-    info = SceneInfo(PointCloud(points=pts, colors=rng.random((30, 3))), [], [],
+    info = SceneInfo(PointCloud(points=pts, colors=rng.random((n_points, 3))), [], [],
                      {"radius": 1.0, "translate": np.zeros(3)}, None)
     cfg = Config()
     cfg.opt.densify_from_iter, cfg.opt.densification_interval = 5, 10
@@ -690,7 +835,7 @@ def clone_train_state(state):
     return state.with_buffers([t.clone() for t in state.buffers()])
 
 
-def run_toy_spans(device, eager, traced=False):
+def run_toy_spans(device, eager, traced=False, n_points=30):
     """A toy trainer (graphed, or eager from the first step) run through
     17-25 (two spans: 17-20 ends in a densification), its state then
     swapped for a copy of the state at 16 with the draws reseeded (as the
@@ -704,7 +849,7 @@ def run_toy_spans(device, eager, traced=False):
 
     from torch.profiler import ProfilerActivity, profile
 
-    trainer = toy_trainer(device, eager=eager)
+    trainer = toy_trainer(device, eager=eager, n_points=n_points)
     start, seed = clone_train_state(trainer.state), trainer.cfg.train.seed + 1
     kept, steps = [], dict(trainer.steps)
 
@@ -748,6 +893,18 @@ def test_graphed_trainer_equals_the_eager_trainer(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(graphed["bits"], eager["bits"]))
     assert graphed["losses"] == eager["losses"] and graphed["counts"] == eager["counts"]
     assert len(graphed["losses"]) == 18 and len({tuple(v) for v in graphed["losses"]}) > 9
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_equals_the_eager_trainer_on_long_tiles(cuda_device):
+    """The same with 3,000 points in the toy scene's six tiles, which the
+    blend walks in chunks: the replays equal the eager steps bit for bit."""
+    graphed = run_toy_spans(cuda_device, eager=False, n_points=3000)
+    eager = run_toy_spans(cuda_device, eager=True, n_points=3000)
+    assert graphed["replays"] == 9
+    assert min(c[2] for c in graphed["counts"]) > BLEND_CHUNK
+    assert all(torch.equal(a, b) for a, b in zip(graphed["bits"], eager["bits"]))
+    assert graphed["losses"] == eager["losses"] and graphed["counts"] == eager["counts"]
 
 
 @pytest.mark.cuda
@@ -1024,8 +1181,9 @@ def plain_rasterize(cam, proj, bg, raster):
 def test_render_forward_backward_equal_the_plain_composition(cuda_device, n, active, W, H):
     """A render's image, depth and alpha and the gradients of the projected
     fields equal the plain binning and gather's bit for bit at both cells'
-    shapes; one render launches each binning kernel as counted and one
-    gather forward and backward."""
+    shapes; one render launches each binning kernel as counted, one gather
+    forward and backward, and the blend's plan, its two forward kernels and
+    its backward once each."""
     proj = projected_set(n + active, n, active, W, H, cuda_device)
     cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, W, H, device=cuda_device)
     raster, bg = RasterConfig(), torch.tensor([0.1, 0.2, 0.3], device=cuda_device)
@@ -1049,7 +1207,7 @@ def test_render_forward_backward_equal_the_plain_composition(cuda_device, n, act
     T = tile_grid(W, H, TS)[0] * tile_grid(W, H, TS)[1]
     assert after - before == collections.Counter({
         **bin_launches(T), "gather_forward": 1, "gather_transpose": 1, "gather_backward": 1,
-        "blend_forward": 1, "blend_backward": 1})
+        "blend_plan": 1, "blend_forward": 1, "blend_chunk": 1, "blend_backward": 1})
     for k, x, y in zip(("image", "depth", "alpha"), got_out, want_out):
         assert torch.equal(bits(x), bits(y)), k
     for k, x, y in zip(names, got_grad, want_grad):

@@ -17,8 +17,9 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # The argument types the wrappers were written against, stream last: the
 # table the library was loaded with before the prototypes were parsed.
 ARGTYPES = {
-    "b3dgs_blend_forward": [P, LL, P, P, I, I, P, P, P],
-    "b3dgs_blend_backward": [P, LL, P, P, P, P, P, I, I, P, P],
+    "b3dgs_blend_plan": [P, I, LL, I, P, P, P, P],
+    "b3dgs_blend_forward": [P, LL, P, P, I, I, I, P, P, P, P, P],
+    "b3dgs_blend_backward": [P, LL, P, P, P, P, P, I, I, I, P, P, P, P],
     "b3dgs_warp_forward": [P, P, I, I, I, P, P, P],
     "b3dgs_warp_backward": [P, P, I, I, I, P, P],
     "b3dgs_project_forward": [P] * 13 + [LL, I, I, I, I, F, F] + [P] * 9,
