@@ -10,7 +10,9 @@ device.
 
 `adam_update` updates parameters and moments IN PLACE (the JAX version
 returns new arrays): the state owns its tensors, and in-place updates keep
-one copy of each buffer on the card.
+one copy of each buffer on the card. On a card it is one launch of the
+hand-written kernel `csrc/adam.cu` over the six groups, which writes the
+bits of `adam_update_torch`, the plain composition that the CPU runs.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..config import OptimizationConfig
 from ..core.transforms import expon_lr_schedule
 from ..models.gaussians import PARAM_NAMES, GaussianModel, GaussianParams
 from ..models.gaussians import from_numpy as model_from_numpy
+from ..ops.cuda_build import launch
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -173,7 +176,82 @@ def adam_update(
     in place; returns the new step count. `corrections` gives
     `bias_corrections(step)` (host numbers, or 0-d float32 tensors on the
     parameters' device, which a CUDA graph reads); a learning rate may be
-    either too."""
+    either too. On a card the kernel `b3dgs_adam_update` (one launch, the
+    bits of `adam_update_torch`), on the CPU `adam_update_torch`."""
+    device = params.xyz.device
+    if device.type == "cpu":
+        return adam_update_torch(params, grads, m, v, step, lrs, active, corrections)
+    if device.type != "cuda":
+        raise ValueError(f"adam_update: unsupported device {device}")
+    corrections = bias_corrections(step) if corrections is None else corrections
+    launch("b3dgs_adam_update", device,
+           *adam_kernel_args(params, grads, m, v, lrs, active, corrections))
+    return step + 1
+
+
+def _rate(name: str, x, device) -> tuple:
+    """(number, pointer) of xyz's rate or a factor as the kernel takes it: a
+    number as itself, a 0-d float32 tensor on `device` by its address."""
+    if not isinstance(x, torch.Tensor):
+        return float(x), None
+    if x.shape != () or x.dtype != torch.float32 or x.device != device:
+        raise ValueError(f"adam_update: {name} must be a number or a 0-d float32 tensor on "
+                         f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return 0.0, x
+
+
+def adam_kernel_args(params, grads, m, v, lrs: dict, active: torch.Tensor,
+                     corrections: tuple) -> list:
+    """`b3dgs_adam_update`'s arguments but the stream: per group (in
+    PARAM_NAMES' order) p, g, m, v, the values a row and the rate (xyz's a
+    number or a 0-d tensor, the others numbers), then the mask, the rows
+    and the two factors. Raises unless every tensor is contiguous, float32
+    (the mask bool) and on the parameters' device, and each group's four
+    tensors share one shape of `rows` rows."""
+    device, rows = params.xyz.device, active.shape[0]
+    if active.dtype != torch.bool or active.shape != (rows,) or active.device != device \
+            or not active.is_contiguous():
+        raise ValueError(f"adam_update: the mask must be a contiguous (rows,) bool tensor on "
+                         f"{device}, got {active.dtype} {tuple(active.shape)} on "
+                         f"{active.device}")
+    args = []
+    for n in PARAM_NAMES:
+        group = [getattr(x, n) for x in (params, grads, m, v)]
+        shape = group[0].shape
+        for t in group:
+            if t.dtype != torch.float32 or t.device != device or not t.is_contiguous() \
+                    or t.shape != shape or shape[0] != rows:
+                raise ValueError(
+                    f"adam_update: {n}'s tensors must be contiguous float32 of one shape with "
+                    f"{rows} rows on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                    f"{'' if t.is_contiguous() else ', not contiguous'}")
+        if group[0].numel() >= 2**31:
+            raise ValueError(f"adam_update: {n} holds {group[0].numel()} values, over 2^31 - 1")
+        width = group[0].numel() // rows if rows else 0
+        if n == "xyz":
+            args += [*group, width, *_rate("the xyz rate", lrs[n], device)]
+        elif isinstance(lrs[n], torch.Tensor):
+            raise ValueError(f"adam_update: the {n} rate must be a number")
+        else:
+            args += [*group, width, float(lrs[n])]
+    c1, c2 = corrections
+    return [*args, active, rows, *_rate("c1", c1, device), *_rate("c2", c2, device)]
+
+
+@torch.no_grad()
+def adam_update_torch(
+    params: GaussianParams,
+    grads: GaussianParams,
+    m: GaussianParams,
+    v: GaussianParams,
+    step: int,
+    lrs: dict,
+    active: torch.Tensor,
+    corrections: tuple | None = None,
+) -> int:
+    """`adam_update` as the plain composition of PyTorch operations: the
+    CPU's path and the kernel's yardstick on the card (18 device
+    operations a group there)."""
     b1t_inv, b2t_inv = bias_corrections(step) if corrections is None else corrections
     for n in PARAM_NAMES:
         p, g, mi, vi = (getattr(x, n) for x in (params, grads, m, v))

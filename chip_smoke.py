@@ -40,7 +40,8 @@ width and fails (non-zero exit) if any phase fails:
      launch counters read around exactly the timed ones (2 blend forward, 2
      blend backward, 1 warp forward, 1 warp backward, 2 vertex forward, 2
      vertex backward, 1 SSIM forward and 1 SSIM backward per step, and per
-     render the binning kernels and the record gather's three); step time,
+     render the binning kernels and the record gather's three, and 1 Adam
+     update per step); step time,
      per-stage times, peak memory, device busy share and top kernels; one
      step at 5k gaussians and 256x192 on the card against the CPU
  10. entry point: `cli train` (densification and the binocular branch
@@ -54,8 +55,9 @@ width and fails (non-zero exit) if any phase fails:
      chkpnt30.npz bit for bit (every buffer, adam_step 30, SH degrees and
      spatial_lr_scale), iteration 60 reached with a finite loss, 2 blend forward,
      2 blend backward, 1 warp forward, 1 warp backward, 2 vertex forward, 2
-     vertex backward, 1 SSIM forward and 1 SSIM backward launches per resumed
-     step with each render's binning and gather kernels, and the eight
+     vertex backward, 1 SSIM forward, 1 SSIM backward and 1 Adam update
+     launches per resumed step with each render's binning and gather
+     kernels, and the eight
      kernels named in the trace
  12. `cli spiral --n_frames 8 --no_video` of the phase-10 model at 1008x756
      (the scene's poses_bounds.npy): 24 PNGs, 8 blend forward launches,
@@ -105,7 +107,8 @@ width and fails (non-zero exit) if any phase fails:
      against `render_tiled` (image and alpha 1e-5, depth 1e-4, radii
      equal), B1 launched once; one sharded step against the single step
      (loss 1e-5 relative, adam_m and grad_accum within 1e-3 of their norms),
-     launches 2/2/1/1/2/2/1/1 and two bands' binning and gathers; where the
+     launches 2/2/1/1/2/2/1/1/1 (the last Adam's) and two bands' binning and
+     gathers; where the
      capacity divides: `shard_gaussians`
      against the replicated render (the same tolerances), 3 `shard_adam`
      steps against 3 replicated ones bit for bit with capacity/ranks moment
@@ -140,6 +143,14 @@ width and fails (non-zero exit) if any phase fails:
      plain stages' times and device operations, and the launch gate of one
      render (each binning kernel as bin_launches counts it, one gather
      forward, one gather backward)
+ 25. (run after phase 24) the masked Adam update (csrc/adam.cu) at the
+     cells' capacities with their active prefix (1,048,576 rows with
+     285,523 active, 262,144 with 100,000; SH degree 1, 23 values a row):
+     every parameter and both moments equal to the plain composition's bit
+     for bit, with the xyz rate and the factors as 0-d device tensors; the
+     kernel's device time with L2 flushed beside the bytes it must move
+     (28 B an active value, 16 B an inactive one, the mask), and the plain
+     composition's device time and operations
 
 It prints a JSON line of per-kernel results, the card's nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. It imports nothing of JAX.
@@ -204,6 +215,13 @@ SSIM_NO_TPU_KERNEL = "none: the JAX package's SSIM (binocular3dgs_tpu/ops/losses
 BIN_BYTES_PER_PAIR, BIN_BYTES_PER_ROW, BIN_BYTES_PER_EMITTING_ROW = 92, 72, 40
 BIN_NO_TPU_KERNEL = ("none: the JAX package bins with XLA's sort and gathers with XLA "
                      "(binocular3dgs_tpu/ops/binning.py, rasterize.py)")
+
+# the masked Adam update (phase 25) at VERTEX_SHAPES' rows, SH degree 1
+# (23 values a row): the bytes it must move, an active value reading p, g,
+# m, v and writing p, m, v, an inactive one reading and writing m and v, and
+# the mask read once a row
+ADAM_VALUES_PER_ROW, ADAM_ACTIVE_BYTES, ADAM_INACTIVE_BYTES = 23, 28, 16
+ADAM_NO_TPU_KERNEL = "none: the JAX package's Adam (binocular3dgs_tpu/train/state.py) is XLA"
 
 W, H, N_GAUSS, PAIRS_PER_GAUSSIAN = 1008, 756, 100_000, 6
 # the overdraw shape of phases 4 and 7: make_workload's draw with large,
@@ -1251,6 +1269,77 @@ def phase_entry_point(torch, model, scene, work):
 _LAUNCH_BASE = collections.Counter()
 
 
+def phase_adam(torch, seed, device, tag="[25 adam]"):
+    """The masked Adam update (csrc/adam.cu) at the cells' capacities with
+    their active prefix: its parameters and moments against the plain
+    composition's, bit for bit, with the xyz rate and the factors as the
+    graphed step passes them (0-d device tensors); the kernel's device time
+    with L2 flushed beside the bytes it must move, and the plain
+    composition's device time and operations."""
+    from benchmark.work import kernel_bound
+    from binocular3dgs_torch.config import Config
+    from binocular3dgs_torch.models.gaussians import GaussianParams
+    from binocular3dgs_torch.train.state import (
+        adam_update, adam_update_torch, bias_corrections, group_lrs,
+    )
+
+    shapes = dict(xyz=(3,), f_dc=(1, 3), f_rest=(3, 3), opacity=(1,), scaling=(3,),
+                  rotation=(4,))
+    res = {}
+    for (cell, n, active_n, _, _), step in zip(VERTEX_SHAPES, (20_002, 4_002)):
+        gen = torch.Generator(device=device).manual_seed(seed + 25)
+
+        def tree(scale, positive=False):
+            return GaussianParams(**{
+                k: (torch.rand if positive else torch.randn)(
+                    (n, *s), generator=gen, device=device) * scale for k, s in shapes.items()})
+
+        p, g, m, v = tree(1.0), tree(1e-3), tree(1e-4), tree(1e-7, positive=True)
+        active = torch.arange(n, device=device) < active_n
+        lrs, corrections = group_lrs(Config().opt, 1.6e-4), bias_corrections(step)
+        graphed = (dict(lrs, xyz=torch.tensor(lrs["xyz"], device=device)),
+                   tuple(torch.tensor(c, device=device) for c in corrections))
+        runs = []
+        for fn, (rates, factors) in ((adam_update, graphed),
+                                     (adam_update_torch, (lrs, corrections))):
+            copies = [GaussianParams(**{k: getattr(t, k).clone() for k in shapes})
+                      for t in (p, g, m, v)]
+            fn(*copies, step, rates, active, factors)
+            runs.append([getattr(t, k).view(torch.int32) for t in (copies[0], *copies[2:])
+                         for k in shapes])
+        differ = sum(int((a != b).sum()) for a, b in zip(*runs))
+        del runs, copies
+        check(differ == 0, f"{tag} {cell}: {differ} values of the kernel's parameters and "
+              f"moments differ from the plain composition's")
+        ms, event_ms = kernel_times(
+            torch, lambda: adam_update(p, g, m, v, step, lrs, active, corrections),
+            "adam_update_kernel")
+        plain_ms, plain_ops, plain_top = stage_device(
+            torch, lambda: adam_update_torch(p, g, m, v, step, lrs, active, corrections))
+        bytes_ = ADAM_VALUES_PER_ROW * (ADAM_ACTIVE_BYTES * active_n
+                                        + ADAM_INACTIVE_BYTES * (n - active_n)) + n
+        bound_ms, bound_by, _, _ = kernel_bound(bytes_, 0)
+        log(f"{tag} {cell}: {n} rows ({active_n} active), parameters and moments equal to the "
+            f"plain composition's bit for bit ({differ} differ), kernel {ms:.4f} ms (profiler, L2 "
+            f"flushed; {event_ms:.4f} ms CUDA events around the wrapper), bound {bytes_} B -> "
+            f"{bound_ms:.4f} ms ({ms / bound_ms:.2f}x); plain {plain_ms:.4f} ms in "
+            f"{plain_ops:.0f} device operations (L2 flushed), largest {plain_top}")
+        check(ms >= bound_ms, f"{tag} {cell} reads {ms} ms, below its bound {bound_ms} ms")
+        res[cell] = dict(rows=n, active=active_n, values_differ=differ, ms=ms,
+                         event_ms=event_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=bytes_, plain_ms=plain_ms,
+                         plain_device_ops=plain_ops)
+        del p, g, m, v, active
+        torch.cuda.empty_cache()
+    first = res[VERTEX_SHAPES[0][0]]
+    return dict(
+        name="adam_update", route="cuda", source="binocular3dgs_torch/csrc/adam.cu",
+        replaces=ADAM_NO_TPU_KERNEL, launches=None, ms=first["ms"], event_ms=first["event_ms"],
+        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=None, library_note="not timed: PyTorch's fused Adam takes no row mask and "
+        "rounds in its own order", cells=res)
+
+
 def render_launches(renders, backward, width, height, tile_size=16):
     """The launches of the binning and record gather kernels and of the
     blend's work-item kernels beside B1 (its plan and chunk walk)
@@ -1383,7 +1472,7 @@ def phase_train(torch, device, seed):
         blend_forward=2 * TRAIN_STEPS, blend_backward=2 * TRAIN_STEPS, warp_forward=TRAIN_STEPS,
         warp_backward=TRAIN_STEPS, project_forward=2 * TRAIN_STEPS,
         project_backward=2 * TRAIN_STEPS, ssim_forward=TRAIN_STEPS, ssim_backward=TRAIN_STEPS,
-        **render_launches(2 * TRAIN_STEPS, 2 * TRAIN_STEPS, W, H))
+        adam_update=TRAIN_STEPS, **render_launches(2 * TRAIN_STEPS, 2 * TRAIN_STEPS, W, H))
     step_ms = [s.elapsed_time(e) for s, e in events]
     losses = [float(m.loss + m.disparity_loss) for m in metrics]
     log(f"[9 train] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-ups: launches {counts} "
@@ -1620,7 +1709,7 @@ def phase_resume(torch, scene, work, trained, pairs_per_gaussian):
     expected = collections.Counter(
         blend_forward=2 * steps, blend_backward=2 * steps, warp_forward=steps,
         warp_backward=steps, project_forward=2 * steps, project_backward=2 * steps,
-        ssim_forward=steps, ssim_backward=steps,
+        ssim_forward=steps, ssim_backward=steps, adam_update=steps,
         **render_launches(2 * steps, 2 * steps, cam0.width, cam0.height))
     resumed = f"Resumed from {ckpt} at iteration 30" in text.getvalue()
     grown = [line for line in text.getvalue().splitlines() if "pair capacity grown" in line]
@@ -2816,7 +2905,8 @@ def sharded_rank_checks(torch, device, seed):
     band_h = -(-TH // world) * cfg.raster.tile_size
     expected = collections.Counter(
         blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1, project_forward=2,
-        project_backward=2, ssim_forward=1, ssim_backward=1, **render_launches(2, 2, W, band_h))
+        project_backward=2, ssim_forward=1, ssim_backward=1, adam_update=1,
+        **render_launches(2, 2, W, band_h))
     res["step"] = dict(loss_sharded=loss2, loss_single=loss1, loss_rel=loss_rel, rel_norm=rel,
                        launches=launches)
     log(f"{tag} one sharded step vs the single step: loss {loss2:.7f} vs {loss1:.7f} (rel "
@@ -3081,10 +3171,11 @@ def main():
     p1, p2 = phase_vertex(torch, args.seed, device)
     s1, s2 = phase_ssim(torch, args.seed, device)
     bins = phase_binning(torch, args.seed, device)
+    adam = phase_adam(torch, args.seed, device)
     train = phase_train(torch, device, args.seed)
     b1["launches_serving"] = main_path["launches"]
     p1["launches_serving"] = main_path["project_launches"]
-    kernels = (b1, b2, w1, w2, p1, p2, s1, s2, *bins)
+    kernels = (b1, b2, w1, w2, p1, p2, s1, s2, *bins, adam)
     for k in kernels:
         k["launches"] = train["launches"][k["name"]]
 

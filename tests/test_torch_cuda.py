@@ -1,7 +1,8 @@
 """Tests that need a CUDA card: the hand-written kernels (blend forward B1,
 blend backward B2, warp forward W1 and backward W2, the vertex stage's
 forward and backward, SSIM's forward S1 and backward S2, binning and the
-record gather with its backward) against their plain PyTorch versions,
+record gather with its backward, the masked Adam update) against their
+plain PyTorch versions,
 bit for bit where the kernels keep the plain version's order (B1 and B2
 also on tiles long enough to be walked in chunks, and the chunks' work
 list against its plain mirror), and their
@@ -58,7 +59,9 @@ from binocular3dgs_torch.ops.rasterize import (
     _build_fields, _GatherRecords, _tiles_to_planes, gather_backward, project_for_render,
     rasterize_projected, render_tiled, segment_sum_columns,
 )
-from binocular3dgs_torch.train.state import init_train_state
+from binocular3dgs_torch.train.state import (
+    adam_update, adam_update_torch, bias_corrections, group_lrs, init_train_state,
+)
 from binocular3dgs_torch.train.step import make_train_step
 
 TS = 16
@@ -691,7 +694,7 @@ def test_train_step_counts_launches(cuda_device):
     per_step = dict(blend_forward=2, blend_backward=2, warp_forward=1, warp_backward=1,
                     blend_plan=2, blend_chunk=2,
                     project_forward=2, project_backward=2, ssim_forward=1, ssim_backward=1,
-                    gather_forward=2, gather_transpose=2, gather_backward=2,
+                    gather_forward=2, gather_transpose=2, gather_backward=2, adam_update=1,
                     **{k: 2 * v for k, v in bin_launches(6 * 4).items()})
     assert after - before == collections.Counter(per_step)
     assert torch.isfinite(metrics.loss) and float(metrics.disparity_loss) > 0
@@ -1001,6 +1004,184 @@ def test_graphed_span_syncs_no_more_than_eager(cuda_device):
     graphed = span_syncs(trainer)
     assert len(graphed) <= len(eager)
     assert (graphs.replays - replays, graphs.captures - captures) == (3, 0)
+
+
+# -- the masked Adam update (csrc/adam.cu) ----------------------------------------
+
+# (rows, active rows) of the cells' capacities (benchmark/configs)
+ADAM_CELLS = [(1_048_576, 285_523), (262_144, 100_000)]
+
+
+def adam_trees(seed, rows, device, deg_rest=3):
+    """Parameters, gradients and both moments of `rows` rows (f_rest with
+    `deg_rest` coefficients), in the magnitudes of a training state."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = dict(xyz=(3,), f_dc=(1, 3), f_rest=(deg_rest, 3), opacity=(1,), scaling=(3,),
+                  rotation=(4,))
+
+    def tree(scale, positive=False):
+        return GaussianParams(**{
+            k: (torch.rand if positive else torch.randn)(
+                (rows, *s), generator=g, device=device) * scale for k, s in shapes.items()})
+
+    return tree(1.0), tree(1e-3), tree(1e-4), tree(1e-7, positive=True)
+
+
+def poison_inactive(trees, active):
+    """Inactive rows' values, gradients and moments set to NaN, +-inf,
+    -0.0 and large numbers in turn: the plain composition replaces their
+    gradient by 0 and keeps their values, and the kernel must write the
+    same bits."""
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 3.0e38, 0.5],
+                           device=active.device)
+    off = torch.nonzero(~active).squeeze(1)
+    for k, tree in enumerate(trees):
+        for n in PARAM_NAMES:
+            t = getattr(tree, n).reshape(active.shape[0], -1)
+            idx = (off[:, None] + k + torch.arange(t.shape[1], device=active.device)) % 6
+            t[off] = special[idx]
+
+
+def adam_bits(trees, active, step, lrs, corrections, fn):
+    """`fn` (adam_update or adam_update_torch) on copies of `trees`: the
+    updated parameters and moments as int32 views, NaNs compared bit for
+    bit."""
+    p, g, m, v = (GaussianParams(**{n: getattr(t, n).clone() for n in PARAM_NAMES})
+                  for t in trees)
+    assert fn(p, g, m, v, step, lrs, active, corrections) == step + 1
+    return [getattr(t, n).view(torch.int32) for t in (p, m, v) for n in PARAM_NAMES]
+
+
+def assert_bits_equal(got, want):
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    assert not bad, [(("p", "m", "v")[i // 6], PARAM_NAMES[i % 6],
+                      int((got[i] != want[i]).sum())) for i in bad]
+
+
+def adam_rates(step, device, on_device):
+    """The step's rates and factors as the trainer passes them: host
+    numbers in an eager step, 0-d float32 tensors on the card in a graph."""
+    lrs = group_lrs(Config().opt, 1.6e-4 * 0.93 ** (step % 7))
+    corrections = bias_corrections(step)
+    if on_device:
+        lrs["xyz"] = torch.tensor(lrs["xyz"], device=device)
+        corrections = tuple(torch.tensor(c, device=device) for c in corrections)
+    return lrs, corrections
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_active", ADAM_CELLS, ids=["llff3", "blender8"])
+@pytest.mark.parametrize("on_device", [False, True], ids=["numbers", "tensors"])
+def test_adam_kernel_equals_the_plain_composition(cuda_device, rows, n_active, on_device):
+    """At the cells' capacities with an active prefix, at a first step and
+    at each cell's block: every parameter and both moments equal the plain
+    composition's on the card bit for bit, in one launch; the rates and
+    factors as host numbers and as 0-d device tensors."""
+    trees = adam_trees(20, rows, cuda_device)
+    active = torch.arange(rows, device=cuda_device) < n_active
+    for step in (0, 4002, 20002):
+        lrs, corrections = adam_rates(step, cuda_device, on_device)
+        before = tracing.launches()["adam_update"]
+        got = adam_bits(trees, active, step, lrs, corrections, adam_update)
+        assert tracing.launches()["adam_update"] == before + 1
+        assert_bits_equal(got, adam_bits(trees, active, step, lrs, corrections,
+                                         adam_update_torch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg_rest", [3, 0, 15])
+def test_adam_kernel_on_a_random_mask_and_poisoned_rows(cuda_device, deg_rest):
+    """A random mask (chunks of four values that straddle active and
+    inactive rows), rows counts that leave a partial last chunk, f_rest of
+    0, 3 and 15 coefficients, and inactive rows holding NaN, inf, -0.0 and
+    large numbers in their values, gradients and moments: the plain
+    composition's bits."""
+    for seed, rows in ((21, 4099), (22, 65_537)):
+        trees = adam_trees(seed, rows, cuda_device, deg_rest)
+        active = torch.rand(rows, generator=torch.Generator(device=cuda_device).manual_seed(seed),
+                            device=cuda_device) < 0.6
+        poison_inactive(trees, active)
+        for on_device in (False, True):
+            lrs, corrections = adam_rates(4005, cuda_device, on_device)
+            assert_bits_equal(adam_bits(trees, active, 4005, lrs, corrections, adam_update),
+                              adam_bits(trees, active, 4005, lrs, corrections,
+                                        adam_update_torch))
+
+
+@pytest.mark.cuda
+def test_adam_kernel_on_a_row_slice(cuda_device):
+    """Rows [lo, lo + n) of the parameters and gradients with moments of n
+    rows, as parallel/sharding.py's sharded Adam passes them (an offset
+    that breaks the 16-byte alignment of the three-wide groups): the rows
+    outside the slice untouched, the slice the plain composition's bits."""
+    rows, lo, n = 10_000, 1_237, 5_001
+    p, g, _, _ = adam_trees(23, rows, cuda_device)
+    active = torch.rand(rows, generator=torch.Generator(device=cuda_device).manual_seed(23),
+                        device=cuda_device) < 0.8
+
+    def sliced(tree):
+        return GaussianParams(**{k: getattr(tree, k)[lo:lo + n] for k in PARAM_NAMES})
+
+    _, _, m, v = adam_trees(26, n, cuda_device)
+    lrs, corrections = adam_rates(4003, cuda_device, False)
+    want_p = GaussianParams(**{k: getattr(p, k).clone() for k in PARAM_NAMES})
+    want_m, want_v = (GaussianParams(**{k: getattr(t, k).clone() for k in PARAM_NAMES})
+                      for t in (m, v))
+    adam_update_torch(sliced(want_p), sliced(g), want_m, want_v, 4003, lrs, active[lo:lo + n],
+                      corrections)
+    adam_update(sliced(p), sliced(g), m, v, 4003, lrs, active[lo:lo + n], corrections)
+    assert_bits_equal([getattr(t, k).view(torch.int32) for t in (p, m, v) for k in PARAM_NAMES],
+                      [getattr(t, k).view(torch.int32) for t in (want_p, want_m, want_v)
+                       for k in PARAM_NAMES])
+
+
+@pytest.mark.cuda
+def test_adam_kernel_replayed_in_a_cuda_graph(cuda_device):
+    """One update captured with its rates and factors in 0-d device
+    tensors, replayed at two steps with the tensors refilled: after each
+    replay the state equals the plain composition's, run eagerly with the
+    step's host numbers, bit for bit."""
+    rows, n_active = 262_144, 100_000
+    trees = adam_trees(24, rows, cuda_device)
+    active = torch.arange(rows, device=cuda_device) < n_active
+    state = [GaussianParams(**{n: getattr(t, n).clone() for n in PARAM_NAMES}) for t in trees]
+    want = [GaussianParams(**{n: getattr(t, n).clone() for n in PARAM_NAMES}) for t in trees]
+    lr, c1, c2 = (torch.zeros((), device=cuda_device) for _ in range(3))
+    scratch = [GaussianParams(**{n: getattr(t, n).clone() for n in PARAM_NAMES}) for t in trees]
+    adam_update(*scratch, 0, group_lrs(Config().opt, 1e-4), active)  # loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        adam_update(*state, 0, group_lrs(Config().opt, lr), active, (c1, c2))
+    for step in (5, 4001):
+        lrs, corrections = adam_rates(step, cuda_device, False)
+        lr.fill_(lrs["xyz"])
+        c1.fill_(corrections[0])
+        c2.fill_(corrections[1])
+        graph.replay()
+        adam_update_torch(*want, step, lrs, active, corrections)
+        torch.cuda.synchronize()
+        assert_bits_equal(
+            [getattr(t, n).view(torch.int32) for t in (state[0], state[2], state[3])
+             for n in PARAM_NAMES],
+            [getattr(t, n).view(torch.int32) for t in (want[0], want[2], want[3])
+             for n in PARAM_NAMES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["non-contiguous", "float64"])
+def test_adam_kernel_refuses_what_it_cannot_read(cuda_device, fault):
+    """A CUDA gradient that is not contiguous, or not float32, raises and
+    launches nothing (no silent copy)."""
+    p, g, m, v = adam_trees(25, 64, cuda_device)
+    bad = (torch.randn(3, 64, device=cuda_device).t() if fault == "non-contiguous"
+           else g.xyz.double())
+    g = dataclasses.replace(g, xyz=bad)
+    before = tracing.launches()["adam_update"]
+    with pytest.raises(ValueError, match="adam_update: xyz"):
+        adam_update(p, g, m, v, 0, group_lrs(Config().opt, 1e-4),
+                    torch.ones(64, dtype=torch.bool, device=cuda_device))
+    assert tracing.launches()["adam_update"] == before
 
 
 @pytest.mark.cuda

@@ -113,6 +113,40 @@ def test_adam_matches_jax():
         np.testing.assert_array_equal(getattr(p, k).numpy()[n_active:], vals[k][n_active:])
 
 
+def test_adam_on_the_cpu_is_the_plain_composition(monkeypatch):
+    """On CPU tensors `adam_update` runs `adam_update_torch` (the plain
+    composition the JAX comparison above holds) and launches no kernel."""
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a CPU update launched a kernel")
+
+    monkeypatch.setattr(state_mod, "launch", no_launch)
+    rng = np.random.default_rng(1)
+    shapes = dict(xyz=(3,), f_dc=(1, 3), f_rest=(3, 3), opacity=(1,), scaling=(3,), rotation=(4,))
+
+    def tree(scale=1.0):
+        return {k: (rng.normal(size=(32,) + s) * scale).astype(np.float32)
+                for k, s in shapes.items()}
+
+    vals, g, m0, v0 = tree(), tree(), tree(1e-3), {k: np.abs(x) for k, x in tree(1e-6).items()}
+    active = torch.from_numpy(rng.random(32) < 0.7)
+    lrs = group_lrs(Config().opt, 1.6e-4)
+    runs = []
+    for fn in (adam_update, state_mod.adam_update_torch):
+        p, mi, vi = (GaussianParams(**{k: torch.from_numpy(x.copy()) for k, x in t.items()})
+                     for t in (vals, m0, v0))
+        grads = GaussianParams(**{k: torch.from_numpy(x) for k, x in g.items()})
+        assert fn(p, grads, mi, vi, 41, lrs, active) == 42
+        runs.append([getattr(t, k) for t in (p, mi, vi) for k in PARAM_NAMES])
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(*runs))
+
+
+def test_adam_on_another_device_raises():
+    p = GaussianParams(**{k: torch.empty(4, 3, device="meta") for k in PARAM_NAMES})
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        adam_update(p, p, p, p, 0, group_lrs(Config().opt, 1e-4),
+                    torch.ones(4, dtype=torch.bool, device="meta"))
+
+
 # -- densification --------------------------------------------------------------
 
 
